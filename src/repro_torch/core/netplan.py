@@ -1,0 +1,586 @@
+"""Network-level plan compiler: coded *segments* instead of per-layer coding.
+
+CoCoI's pipeline (§II-B) treats every type-1 conv as an isolated
+split -> encode -> dispatch -> decode -> concat round trip through the
+master: for VGG16 that is 13 encode/decode GEMM pairs and 26 full
+master<->worker transfers per inference.  This module compiles a whole
+CNN into **coded segments** — maximal runs of consecutive type-1 layers
+over which each worker keeps its output width-slice resident as the next
+layer's input slice — so the master encodes once at segment entry and
+decodes once at segment exit: coded-GEMM count drops from 2·L to
+2·segments, and the per-layer halo (K_W - S_W columns, composed backward
+through eqs. 1-2 by ``splitting.plan_segment_split``) ships once with the
+entry partition instead of round-tripping through the master.
+
+What may fuse is a property of the *coding scheme*, not just geometry:
+
+* an elementwise activation (relu) or an interior re-pad between layers
+  commutes with **selection-structured** schemes only (replication,
+  uncoded: every generator row has at most one nonzero) — for a true
+  linear mix, relu(G x) != G relu(x), so MDS/LT pieces cannot stay
+  resident across an activation.  The compiler reads
+  ``schemes.commutes_elementwise`` and places a forced decode point
+  there for linear schemes;
+* type-2 layers, pooling, and geometry breaks force decode points for
+  every scheme;
+* inside a fusible run, a small DP over cut points decides where
+  re-coding *pays*: deeper segments amortize the encode/decode GEMMs and
+  the per-boundary transfers but grow the composed halo (redundant
+  entry columns and compute) and pin one k for the whole chain, while a
+  cut refreshes k° at the §IV-optimal per-segment value.
+
+Each segment gets its own (n, k°) via a segment-level extension of the
+§IV latency model (:func:`segment_latency`): encode/decode cost amortized
+over the chain, per-layer halo bytes charged at entry, scheme-appropriate
+order-statistic factor for the k-th-arrival wait.
+
+The compiled :class:`NetPlan` is what the execution layers consume:
+``coded_conv.run_segment`` (functional / executor form),
+``models/cnn.py`` forwards, and ``benchmarks/pipeline_depth.py``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from .latency import (
+    PhaseSizes,
+    SystemParams,
+    harmonic,
+    stream_chunk_count,
+)
+from .schemes import (
+    CodingScheme,
+    commutes_elementwise,
+    get_scheme,
+    warm_decode_cache,
+)
+from .splitting import ConvSpec, SegmentSplitPlan, plan_segment_split
+
+__all__ = [
+    "LayerInfo",
+    "SegmentStep",
+    "LocalStep",
+    "NetPlan",
+    "order_factor",
+    "segment_sizes",
+    "segment_latency",
+    "plan_stream_chunks",
+    "compile_plan",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerInfo:
+    """One conv layer of a network, with its execution-relevant structure.
+
+    ``act`` is the elementwise activation applied after the conv (None for
+    a purely linear layer), ``pad`` the symmetric zero-pad applied to this
+    layer's input (the spec's ``w_in``/``h_in`` are the padded sizes), and
+    ``pool`` the max-pool window (== stride) applied after the activation
+    (0 = none).  The paper's type-1/type-2 classification (App. A) rides
+    in ``type1``.
+    """
+
+    name: str
+    spec: ConvSpec
+    type1: bool
+    act: str | None = "relu"
+    pad: int = 1
+    pool: int = 0
+    # a structural join follows this layer (residual add, branch merge):
+    # the full output must materialize on the master, so no segment may
+    # extend past it regardless of scheme
+    barrier: bool = False
+    # observed per-unit compute slowdown of THIS layer relative to the
+    # params baseline (telemetry-driven re-planning, DESIGN.md §15): the
+    # cut DP charges this layer's flops at cmp_scale x, so a localized
+    # per-layer drift can move a segment boundary, not just k°.  1.0 =
+    # trust the baseline.
+    cmp_scale: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentStep:
+    """One coded segment: layers [start, stop) executed as resident chains."""
+
+    start: int
+    stop: int
+    scheme: CodingScheme
+    split: SegmentSplitPlan
+    est_latency_s: float
+    entry_bytes: int        # master->worker scatter: all n dispatched pieces
+    exit_bytes: int         # worker->master gather: the k consumed slices
+    halo_extra_bytes: int   # source partitions' overlap vs disjoint coverage
+    # streamed-dispatch depth (DESIGN.md §11): ship/compute the segment in
+    # this many column chunks; 1 = serial scatter/compute/gather
+    chunks: int = 1
+
+    @property
+    def depth(self) -> int:
+        return self.stop - self.start
+
+    @property
+    def k(self) -> int:
+        return self.scheme.k
+
+    @property
+    def n(self) -> int:
+        return self.scheme.n
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalStep:
+    """Layers [start, stop) the master runs locally (type-2 / unsplittable)."""
+
+    start: int
+    stop: int
+    est_latency_s: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class NetPlan:
+    """A compiled network: an ordered walk of segments and local steps."""
+
+    layers: Tuple[LayerInfo, ...]
+    steps: Tuple[SegmentStep | LocalStep, ...]
+    scheme_name: str
+    n: int
+
+    @property
+    def segments(self) -> List[SegmentStep]:
+        return [s for s in self.steps if isinstance(s, SegmentStep)]
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.segments)
+
+    @property
+    def boundary_coding_ops(self) -> int:
+        """Master encode + decode operations the plan performs: 2/segment."""
+        return 2 * self.n_segments
+
+    @property
+    def est_latency_s(self) -> float:
+        return float(sum(s.est_latency_s for s in self.steps))
+
+    @property
+    def master_worker_bytes(self) -> int:
+        return int(sum(s.entry_bytes + s.exit_bytes for s in self.segments))
+
+    def describe(self) -> str:
+        out = []
+        for s in self.steps:
+            names = ",".join(li.name for li in self.layers[s.start:s.stop])
+            if isinstance(s, SegmentStep):
+                out.append(f"seg[{names}] n={s.n} k={s.k} depth={s.depth}")
+            else:
+                out.append(f"local[{names}]")
+        return " -> ".join(out)
+
+
+# ---------------------------------------------------------------------------
+# segment-level latency model (§IV extended over a chain)
+# ---------------------------------------------------------------------------
+
+def order_factor(scheme_name: str, n: int, k: int) -> float:
+    """Order-statistic multiplier of the exponential part of one worker's
+    round trip, per scheme completion rule.
+
+    * mds/lt — decode at the k-th of n arrivals: H_n - H_{n-k} (exact for
+      iid exponentials; the paper's ln(n/(n-k)) is its large-n limit);
+    * uncoded — wait for all n: H_n;
+    * replication — every subtask's faster copy: max of k Exp(2λ)-like
+      minima, approximated by H_k / 2.  A cut-placement approximation,
+      not a claim of exactness (the shifts make the true law a shifted
+      hypoexponential; see planner.uncoded_latency for the exact
+      treatment of the uncoded case).
+    """
+    key = {"coded": "mds"}.get(scheme_name, scheme_name)
+    if key in ("mds", "lt"):
+        return harmonic(n) - harmonic(n - k)
+    if key == "uncoded":
+        return harmonic(n)
+    if key == "replication":
+        return harmonic(k) / 2.0
+    return harmonic(n) - harmonic(n - k)
+
+
+def _scales(specs: Sequence[ConvSpec],
+            cmp_scales: Sequence[float] | None) -> Sequence[float]:
+    if cmp_scales is None:
+        return [1.0] * len(specs)
+    if len(cmp_scales) != len(specs):
+        raise ValueError(f"{len(cmp_scales)} cmp_scales for "
+                         f"{len(specs)} layers")
+    return [float(c) for c in cmp_scales]
+
+
+def segment_sizes(specs: Sequence[ConvSpec], pads: Sequence[int],
+                  scheme: CodingScheme,
+                  split: SegmentSplitPlan | None = None,
+                  cmp_scales: Sequence[float] | None = None,
+                  ) -> tuple[PhaseSizes, float]:
+    """Phase scalings of one segment execution (eqs. 8-12 over a chain).
+
+    Sizes are evaluated at an *interior* partition (the widest chain —
+    edge chains are narrower by their zero-injection counts).  Returns
+    ``(sizes, remainder_flops)`` where the remainder is the master-local
+    chain for the W_O mod k columns (footnote 2).  ``cmp_scales`` charges
+    each layer's flops at its observed slowdown (telemetry re-planning).
+    """
+    k = scheme.k
+    if split is None:
+        split = plan_segment_split(specs, pads, k)
+    sc = _scales(specs, cmp_scales)
+    part = split.parts[min(k // 2, k - 1)]
+    s0, sd = specs[0], specs[-1]
+    row_in = s0.batch * s0.c_in * s0.h_in * part.w_entry
+    row_out = sd.batch * sd.c_out * sd.h_out * part.w_exit
+    n_cmp = sum(c * sp.subtask_flops(st.w_out)
+                for c, sp, st in zip(sc, specs, part.steps))
+    rem = 0.0
+    if split.remainder is not None:
+        rem = float(sum(c * sp.subtask_flops(st.w_out)
+                        for c, sp, st in zip(sc, specs,
+                                             split.remainder.steps)))
+    return PhaseSizes(
+        n_enc=float(scheme.encode_flops(row_in)),
+        n_cmp=float(n_cmp),
+        n_rec=4.0 * row_in,
+        n_sen=4.0 * row_out,
+        n_dec=float(scheme.decode_flops(row_out)),
+    ), rem
+
+
+def segment_layer_sizes(specs: Sequence[ConvSpec], pads: Sequence[int],
+                        scheme: CodingScheme,
+                        split: SegmentSplitPlan | None = None,
+                        cmp_scales: Sequence[float] | None = None,
+                        ) -> Tuple[PhaseSizes, ...]:
+    """Per-layer phase sizes of one segment piece chain: entry receive on
+    the first layer, exit send on the last, compute per layer — the shape
+    ``dist.SegmentDelay`` and the per-stage estimator consume."""
+    if split is None:
+        split = plan_segment_split(specs, pads, scheme.k)
+    sc = _scales(specs, cmp_scales)
+    part = split.parts[min(scheme.k // 2, scheme.k - 1)]
+    s0, sd = specs[0], specs[-1]
+    row_in = s0.batch * s0.c_in * s0.h_in * part.w_entry
+    row_out = sd.batch * sd.c_out * sd.h_out * part.w_exit
+    last = len(specs) - 1
+    return tuple(
+        PhaseSizes(
+            n_enc=0.0,
+            n_cmp=float(c * sp.subtask_flops(st.w_out)),
+            n_rec=4.0 * row_in if j == 0 else 0.0,
+            n_sen=4.0 * row_out if j == last else 0.0,
+            n_dec=0.0,
+        )
+        for j, (c, sp, st) in enumerate(zip(sc, specs, part.steps))
+    )
+
+
+def segment_latency(specs: Sequence[ConvSpec], pads: Sequence[int],
+                    scheme: CodingScheme, params: SystemParams,
+                    split: SegmentSplitPlan | None = None,
+                    cmp_scales: Sequence[float] | None = None) -> float:
+    """Approximate expected latency of one coded segment (eq. 16 extended).
+
+    One encode + one decode on the master, then the k-th-arrival wait over
+    the chain round-trips (receive composed entry slice, run the whole
+    conv chain, send the final slice), maxed against the master's local
+    remainder chain — the segment-granularity analogue of
+    ``planner.k_circ_remainder_aware``'s objective.
+    """
+    s, rem = segment_sizes(specs, pads, scheme, split, cmp_scales)
+    enc_dec = (s.n_enc + s.n_dec) * (1.0 / params.mu_m + params.theta_m)
+    theta_sum = (s.n_rec * params.theta_rec + s.n_cmp * params.theta_cmp
+                 + s.n_sen * params.theta_sen)
+    mu_sum = (s.n_rec / params.mu_rec + s.n_cmp / params.mu_cmp
+              + s.n_sen / params.mu_sen)
+    name = getattr(scheme, "scheme_name", "mds")
+    order = order_factor(name, scheme.n, scheme.k)
+    worker_path = theta_sum + mu_sum * order
+    rem_mean = rem * (params.theta_cmp + 1.0 / params.mu_cmp)
+    return float(enc_dec + max(worker_path, rem_mean))
+
+
+def plan_stream_chunks(specs: Sequence[ConvSpec], pads: Sequence[int],
+                       scheme: CodingScheme, params: SystemParams,
+                       split: SegmentSplitPlan | None = None, *,
+                       cmp_scales: Sequence[float] | None = None,
+                       tol: float = 0.1, cap: int = 8) -> int:
+    """Streaming depth for one segment from the §IV transfer/compute ratio.
+
+    The mean durations of a piece's sub-stages (entry receive, one compute
+    per chain layer, exit send) under ``params`` feed
+    :func:`~repro_torch.core.latency.stream_chunk_count`: when ship and compute
+    means are comparable there is real overlap to win and the count grows
+    toward ``cap``; when one resource dominates, streaming cannot hide
+    anything and the count collapses to 1.  Bounded by the partitions'
+    exit width so every chunk is at least one column.
+    """
+    if split is None:
+        split = plan_segment_split(specs, pads, scheme.k)
+    layer_sz = segment_layer_sizes(specs, pads, scheme, split, cmp_scales)
+    stages: list[float] = []
+    for s in layer_sz:
+        if s.n_rec:
+            stages.append(params.rec.scaled(s.n_rec).mean())
+        stages.append(params.cmp.scaled(s.n_cmp).mean())
+        if s.n_sen:
+            stages.append(params.sen.scaled(s.n_sen).mean())
+    c = stream_chunk_count(stages, tol=tol, cap=cap)
+    return max(1, min(c, min(p.w_exit for p in split.parts)))
+
+
+# ---------------------------------------------------------------------------
+# scheme instantiation + per-segment k
+# ---------------------------------------------------------------------------
+
+def _instantiate(scheme_name: str, n: int, k: int) -> CodingScheme:
+    """Scheme instance at an explicit (n, k) without compatibility warnings:
+    structural-k schemes adjust their worker count instead."""
+    cls = get_scheme(scheme_name)
+    canon = cls.scheme_name
+    if canon == "replication":
+        return cls(n if k == max(n // 2, 1) else 2 * k)
+    if canon == "uncoded":
+        return cls(k)
+    return cls.make(n, k)
+
+
+def _plan_segment(scheme_name: str, layers: Sequence[LayerInfo],
+                  n: int, params: SystemParams,
+                  fixed_scheme: CodingScheme | None = None,
+                  ) -> tuple[CodingScheme, SegmentSplitPlan, float] | None:
+    """Best (scheme, split, latency) for one candidate segment, or None if
+    no feasible k exists (e.g. a fixed k wider than the final output)."""
+    specs = [li.spec for li in layers]
+    pads = [li.pad for li in layers]
+    scales = [li.cmp_scale for li in layers]
+    w_o = specs[-1].w_out
+
+    def _try(k: int, scheme: CodingScheme | None = None):
+        try:
+            split = plan_segment_split(specs, pads, k)
+        except ValueError:
+            return None  # slice falls in the pad region: infeasible depth/k
+        scheme = scheme if scheme is not None else _instantiate(
+            scheme_name, n, k)
+        return scheme, split, segment_latency(specs, pads, scheme, params,
+                                              split, scales)
+
+    if fixed_scheme is not None:
+        # a pinned instance (legacy code= path): no k search, no registry
+        # lookup — the instance may be a raw coding.MDSCode
+        if fixed_scheme.k > w_o:
+            return None
+        return _try(fixed_scheme.k, fixed_scheme)
+
+    cls = get_scheme(scheme_name)
+    if cls.scheme_name in ("replication", "uncoded"):
+        k = cls.redundancy_policy(n, specs[-1], params)
+        return _try(min(k, w_o))
+
+    # free-k schemes (mds/lt): search k against the segment model.  The
+    # LT rank probes are deferred until the k is chosen — the search uses
+    # the MDS flops proxy (same 2knF / 2k^2F scaling the LT sim uses).
+    best = None
+    for k in range(1, min(n, w_o) + 1):
+        cand = _try(k, _instantiate("mds", n, k))
+        if cand is not None and (best is None or cand[2] < best[2]):
+            best = cand
+    if best is None:
+        return None
+    if cls.scheme_name != "mds":
+        scheme = _instantiate(scheme_name, n, best[0].k)
+        return scheme, best[1], segment_latency(specs, pads, scheme, params,
+                                                best[1], scales)
+    return best
+
+
+# ---------------------------------------------------------------------------
+# the compiler
+# ---------------------------------------------------------------------------
+
+def _fusible(prev: LayerInfo, cur: LayerInfo, commuting: bool) -> bool:
+    """May ``cur`` join a segment that ends with ``prev``?"""
+    ps, cs, p = prev.spec, cur.spec, cur.pad
+    if prev.pool or prev.barrier:
+        return False  # pooling / structural joins are master-side breaks
+    if cs.c_in != ps.c_out or cs.batch != ps.batch:
+        return False
+    if cs.w_in != ps.w_out + 2 * p or cs.h_in != ps.h_out + 2 * p:
+        return False  # geometry does not chain
+    if not commuting and (prev.act is not None or p != 0):
+        # linear mixes cannot cross an elementwise activation, and the
+        # interior re-pad's edge zeros are partition-dependent — both
+        # force a decode point for non-selection schemes
+        return False
+    return True
+
+
+def _segment_step(layers: Sequence[LayerInfo], start: int, stop: int,
+                  planned: tuple[CodingScheme, SegmentSplitPlan, float],
+                  params: SystemParams) -> SegmentStep:
+    from .schemes import source_of_piece
+
+    scheme, split, lat = planned
+    specs = [li.spec for li in layers[start:stop]]
+    pads = [li.pad for li in layers[start:stop]]
+    chunks = plan_stream_chunks(
+        specs, pads, scheme, params, split,
+        cmp_scales=[li.cmp_scale for li in layers[start:stop]])
+    seg = layers[start:stop]
+    s0, sd = seg[0].spec, seg[-1].spec
+    # scatter = the n pieces the master actually dispatches: selection
+    # schemes ship each source partition's slice once per replica, linear
+    # mixes ship n coded pieces at the uniform interior width
+    srcs = [source_of_piece(scheme, i) for i in range(scheme.n)]
+    if any(s is None for s in srcs):
+        piece_widths = [split.parts[0].w_entry] * scheme.n
+    else:
+        piece_widths = [split.parts[s].w_entry for s in srcs]
+    entry = 4 * s0.batch * s0.c_in * s0.h_in * sum(piece_widths)
+    # gather = the k slices decode consumes (stragglers past the k-th are
+    # cancelled and never transmit)
+    exit_ = 4 * sd.batch * sd.c_out * sd.h_out * sum(
+        p.w_exit for p in split.parts)
+    # composed-halo overlap of the k SOURCE partitions vs their disjoint
+    # coverage — the cost of self-contained chains, separate from the
+    # n/k coding redundancy already visible in entry_bytes
+    coverage = (max(p.entry.b_i for p in split.parts)
+                - min(p.entry.a_i for p in split.parts))
+    halo = (4 * s0.batch * s0.c_in * s0.h_in
+            * (sum(p.w_entry for p in split.parts) - coverage))
+    return SegmentStep(start=start, stop=stop, scheme=scheme, split=split,
+                       est_latency_s=lat, entry_bytes=int(entry),
+                       exit_bytes=int(exit_), halo_extra_bytes=int(halo),
+                       chunks=chunks)
+
+
+def _local_step(layers: Sequence[LayerInfo], start: int, stop: int,
+                params: SystemParams) -> LocalStep:
+    flops = sum(li.cmp_scale * li.spec.subtask_flops(li.spec.w_out)
+                for li in layers[start:stop])
+    return LocalStep(start=start, stop=stop,
+                     est_latency_s=flops * (params.theta_m + 1.0 / params.mu_m))
+
+
+def compile_plan(layers: Sequence[LayerInfo], n: int, params: SystemParams,
+                 scheme: str = "mds", *,
+                 fixed_scheme: CodingScheme | None = None,
+                 max_depth: int = 8, dp: bool = True) -> NetPlan:
+    """Compile a layer stack into a :class:`NetPlan`.
+
+    ``scheme`` names any registered coding scheme; ``fixed_scheme`` pins
+    one (n, k) instance for every segment instead of the per-segment k°
+    (the legacy ``small_cnn_forward(code=...)`` path).  ``max_depth``
+    bounds segment depth (``max_depth=1`` reproduces the per-layer
+    pipeline — the benchmark baseline); ``dp=False`` fuses every maximal
+    run greedily without cost-driven cuts.
+    """
+    if fixed_scheme is not None:
+        # raw coding.* instances carry no registered name: treat them as
+        # non-commuting linear mixes (the conservative, always-exact choice)
+        scheme = getattr(fixed_scheme, "scheme_name", None) or "mds"
+    commuting = commutes_elementwise(scheme)
+    layers = tuple(layers)
+    steps: List[SegmentStep | LocalStep] = []
+    i = 0
+    while i < len(layers):
+        if not layers[i].type1:
+            steps.append(_local_step(layers, i, i + 1, params))
+            i += 1
+            continue
+        j = i + 1
+        while (j < len(layers) and layers[j].type1
+               and _fusible(layers[j - 1], layers[j], commuting)):
+            j += 1
+        steps.extend(_compile_run(layers, i, j, n, params, scheme,
+                                  fixed_scheme, max_depth, dp))
+        i = j
+    plan = NetPlan(layers=layers, steps=tuple(steps),
+                   scheme_name=scheme, n=n)
+    # warm each segment scheme's decode matrices now, at compile time —
+    # the first inference's TTFT should pay the skinny decode GEMM only,
+    # never the Vandermonde / pseudo-inverse solve (DESIGN.md §11)
+    for seg in plan.segments:
+        warm_decode_cache(seg.scheme)
+    return plan
+
+
+def _compile_run(layers, lo: int, hi: int, n: int, params, scheme_name: str,
+                 fixed_scheme, max_depth: int, dp: bool,
+                 ) -> List[SegmentStep | LocalStep]:
+    """Cut one maximal fusible run [lo, hi) into segments by a DP over cut
+    points (cost = the segment latency model), falling back to local
+    execution for stretches where no k is feasible."""
+    span = hi - lo
+    depth_cap = max(1, max_depth)
+    # cost[a][b]: planned segment for layers [lo+a, lo+b), or None
+    planned: dict[tuple[int, int], tuple] = {}
+
+    def cost(a: int, b: int):
+        if (a, b) not in planned:
+            planned[(a, b)] = _plan_segment(
+                scheme_name, layers[lo + a:lo + b], n, params, fixed_scheme)
+        return planned[(a, b)]
+
+    if not dp:
+        # greedy: fuse the longest feasible segment at each position, no
+        # cost-driven cuts; an infeasible layer (every k in the pad
+        # region) runs on the master
+        out: List[SegmentStep | LocalStep] = []
+        a = 0
+        while a < span:
+            for b in range(min(span, a + depth_cap), a, -1):
+                c = cost(a, b)
+                if c is not None:
+                    out.append(_segment_step(layers, lo + a, lo + b, c,
+                                             params))
+                    a = b
+                    break
+            else:
+                out.append(_local_step(layers, lo + a, lo + a + 1, params))
+                a += 1
+        return out
+
+    INF = float("inf")
+    best = [INF] * (span + 1)
+    back: List[int] = [-1] * (span + 1)
+    local_cost = [_local_step(layers, lo + a, lo + a + 1, params).est_latency_s
+                  for a in range(span)]
+    best[0] = 0.0
+    for b in range(1, span + 1):
+        for a in range(max(0, b - depth_cap), b):
+            c = cost(a, b)
+            if c is None:
+                continue
+            v = best[a] + c[2]
+            if v < best[b]:
+                best[b], back[b] = v, a
+        if best[b] == INF:
+            # no feasible segment ends at layer b-1 (every k hits the pad
+            # region): the master runs it locally.  Type-1 layers with a
+            # feasible split always stay distributed — the classification,
+            # not the cut DP, owns that decision.
+            best[b], back[b] = best[b - 1] + local_cost[b - 1], -(b - 1) - 1
+    # reconstruct
+    out: List[SegmentStep | LocalStep] = []
+    b = span
+    while b > 0:
+        a = back[b]
+        if a < 0:  # local fallback marker
+            a = -a - 1
+            out.append(_local_step(layers, lo + a, lo + b, params))
+        else:
+            out.append(_segment_step(layers, lo + a, lo + b, cost(a, b),
+                                     params))
+        b = a
+    out.reverse()
+    return out

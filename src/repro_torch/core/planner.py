@@ -1,0 +1,411 @@
+"""Optimal splitting analysis (paper §III-C, §IV, Appendices C-F).
+
+Implements:
+
+* ``expected_latency_mc``  — Monte-Carlo estimate of E[T^c(k)] (eq. 5/14),
+  the objective of problem (13) whose exact form is open (order statistic
+  of a sum of shift-exponentials).
+* ``L``                    — the explicit convex approximation L(k) (eq. 16).
+* ``k_star``               — empirical optimum k* (argmin of the MC estimate).
+* ``k_circ``               — approximate optimum k° (minimise L continuously,
+  then round, as in §IV-A).
+* ``uncoded_latency`` / ``uncoded_latency_mc`` — the uncoded benchmark [8]
+  (App. F, eq. 20): split into n, wait for all n.
+* ``replication_latency_mc`` — 2x replication benchmark [15].
+* ``straggling_index_R``   — the R of §IV-C; Prop. 2 says coded wins when
+  R <= 1 and n >= 10.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+from scipy import optimize
+
+from .latency import (
+    SystemParams,
+    PhaseSizes,
+    harmonic,
+    phase_sizes,
+)
+from .splitting import ConvSpec
+
+__all__ = [
+    "L",
+    "L_continuous",
+    "plan_k",
+    "k_circ",
+    "k_circ_segment",
+    "k_star",
+    "expected_latency_mc",
+    "uncoded_latency",
+    "uncoded_latency_mc",
+    "replication_latency_mc",
+    "straggling_index_R",
+    "PlanResult",
+    "plan_layer",
+]
+
+
+# ---------------------------------------------------------------------------
+# continuous phase sizes (floor relaxed, §IV-A)
+# ---------------------------------------------------------------------------
+
+def _sizes_continuous(spec: ConvSpec, n: int, k: float) -> PhaseSizes:
+    w_o_p = spec.w_out / k
+    w_i_p = spec.kernel + (w_o_p - 1.0) * spec.stride
+    row_in = spec.batch * spec.c_in * spec.h_in * w_i_p
+    row_out = spec.batch * spec.c_out * spec.h_out * w_o_p
+    return PhaseSizes(
+        n_enc=2.0 * k * n * row_in,
+        n_cmp=spec.batch * spec.c_out * spec.h_out * w_o_p * 2 * spec.c_in * spec.kernel ** 2,
+        n_rec=4.0 * row_in,
+        n_sen=4.0 * row_out,
+        n_dec=2.0 * k * k * row_out,
+    )
+
+
+def _L_from_sizes(s: PhaseSizes, n: int, k: float, p: SystemParams,
+                  order_term: float) -> float:
+    enc_dec = (s.n_enc + s.n_dec) * (1.0 / p.mu_m + p.theta_m)
+    theta_sum = s.n_rec * p.theta_rec + s.n_cmp * p.theta_cmp + s.n_sen * p.theta_sen
+    mu_sum = s.n_rec / p.mu_rec + s.n_cmp / p.mu_cmp + s.n_sen / p.mu_sen
+    return enc_dec + theta_sum + mu_sum * order_term
+
+
+def L(spec: ConvSpec, n: int, k: int, params: SystemParams,
+      extra_exp: float = 0.0) -> float:
+    """Approximate expected overall latency L(k) (eq. 16), integer k.
+
+    Uses the exact harmonic form H_n - H_{n-k} (the paper's ln(n/(n-k)) is
+    its large-n limit and diverges at k=n; the harmonic form also covers the
+    no-redundancy case k=n used by the uncoded comparison).
+
+    ``extra_exp`` adds a split-size-INDEPENDENT exponential delay with the
+    given mean per worker round-trip (scenario-1's injected channel
+    contention); it enters the objective through the same order-statistic
+    factor.
+    """
+    s = phase_sizes(spec, n, k)
+    order = harmonic(n) - harmonic(n - k)
+    return _L_from_sizes(s, n, k, params, order) + extra_exp * order
+
+
+def L_continuous(spec: ConvSpec, n: int, k: float, params: SystemParams) -> float:
+    """L(k) with both the floor and the integrality of k relaxed (eq. 16)."""
+    s = _sizes_continuous(spec, n, k)
+    return _L_from_sizes(s, n, k, params, float(np.log(n / (n - k))))
+
+
+def plan_k(scheme: str, spec: ConvSpec, n: int, params: SystemParams) -> int:
+    """Split choice k for ANY registered scheme — delegates to the scheme's
+    own ``redundancy_policy`` (k° for MDS, floor(n/2) for replication,
+    min(n, W_O) for uncoded/LT).  The scheme-agnostic entry point the
+    serving/benchmark layers use instead of hard-coding per-method rules."""
+    from .schemes import get_scheme
+
+    return get_scheme(scheme).redundancy_policy(n, spec, params)
+
+
+def k_circ(spec: ConvSpec, n: int, params: SystemParams,
+           extra_exp: float = 0.0) -> int:
+    """Approximate optimal k° (§IV-A): convex minimisation + rounding."""
+    hi = min(n - 1e-6, float(spec.w_out))
+    if hi <= 1.0:
+        # the relaxed domain (1, hi) collapses (n == 1 or W_O <= 1): k = 1
+        # is the only feasible split — nothing to optimise
+        return 1
+    res = optimize.minimize_scalar(
+        lambda k: (L_continuous(spec, n, k, params)
+                   + extra_exp * float(np.log(n / (n - k)))),
+        bounds=(1.0, hi), method="bounded"
+    )
+    k_prime = float(res.x)
+    lo, up = int(np.floor(k_prime)), int(np.ceil(k_prime))
+    lo = max(lo, 1)
+    kmax = min(n, spec.w_out)
+    up = min(max(up, 1), kmax)
+    # problem (13)'s domain is k in {1..n}: the relaxed log term diverges
+    # at k=n, so the no-redundancy point is checked explicitly (it wins in
+    # benign regimes, matching the paper's "uncoded slightly faster" case)
+    cands = sorted({lo, up, kmax})
+    return min(cands, key=lambda k: L(spec, n, k, params, extra_exp))
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo objective (problem (13))
+# ---------------------------------------------------------------------------
+
+def _worker_time_samples(
+    s: PhaseSizes, params: SystemParams, n: int, samples: int, rng: np.random.Generator
+) -> np.ndarray:
+    """T_i^w = T_i^rec + T_i^cmp + T_i^sen (eq. 6): shape (samples, n)."""
+    rec = params.rec.scaled(s.n_rec).sample(rng, (samples, n))
+    cmp_ = params.cmp.scaled(s.n_cmp).sample(rng, (samples, n))
+    sen = params.sen.scaled(s.n_sen).sample(rng, (samples, n))
+    return rec + cmp_ + sen
+
+
+def _master_remainder_samples(spec, k, params, samples, rng):
+    """Footnote 2: the master keeps the mod(W_O, k) output columns and
+    computes them locally, concurrently with the workers.  The paper
+    asserts this is never the bottleneck; we model it explicitly so the
+    assertion is enforced rather than assumed (it matters for k choices
+    with large remainders)."""
+    rem = spec.w_out % k
+    if rem == 0:
+        return 0.0
+    n_rem = spec.subtask_flops(rem)
+    return params.cmp.scaled(n_rem).sample(rng, (samples,))
+
+
+def expected_latency_mc(
+    spec: ConvSpec,
+    n: int,
+    k: int,
+    params: SystemParams,
+    samples: int = 20_000,
+    rng: np.random.Generator | None = None,
+    return_samples: bool = False,
+):
+    """Monte-Carlo E[T^c(k)] = E[T^enc + T^w_{n:k} + T^dec] (eqs. 5, 14),
+    with the master's remainder subtask running concurrently."""
+    rng = rng or np.random.default_rng(0)
+    s = phase_sizes(spec, n, k)
+    t_enc = params.master.scaled(s.n_enc).sample(rng, (samples,))
+    t_dec = params.master.scaled(s.n_dec).sample(rng, (samples,))
+    tw = _worker_time_samples(s, params, n, samples, rng)
+    t_kth = np.partition(tw, k - 1, axis=1)[:, k - 1]  # k-th order statistic
+    t_exec = np.maximum(t_kth, _master_remainder_samples(spec, k, params,
+                                                         samples, rng))
+    total = t_enc + t_exec + t_dec
+    return total if return_samples else float(total.mean())
+
+
+def k_star(
+    spec: ConvSpec,
+    n: int,
+    params: SystemParams,
+    samples: int = 20_000,
+    rng: np.random.Generator | None = None,
+) -> int:
+    """Empirical optimal k* (problem (13)) by exhaustive MC over k in [1, n]."""
+    rng = rng or np.random.default_rng(0)
+    kmax = min(n, spec.w_out)
+    vals = {
+        k: expected_latency_mc(spec, n, k, params, samples, rng) for k in range(1, kmax + 1)
+    }
+    return min(vals, key=vals.get)
+
+
+# ---------------------------------------------------------------------------
+# benchmarks: uncoded [8] and replication [15]
+# ---------------------------------------------------------------------------
+
+def _hypoexp_sf(u: float, rates: np.ndarray) -> float:
+    """P(X_1 + ... + X_m > u) for independent X_j ~ Exp(rates[j]).
+
+    Evaluated through the phase-type representation (survival = mass still
+    in a transient state of the sequential chain at time u), which is
+    numerically stable even when rates (near-)coincide — the textbook
+    partial-fraction formula cancels catastrophically there.
+    """
+    if u <= 0.0:
+        return 1.0
+    from scipy.linalg import expm
+
+    m = len(rates)
+    Q = np.zeros((m, m))
+    for j, r in enumerate(rates):
+        Q[j, j] = -r
+        if j + 1 < m:
+            Q[j, j + 1] = r
+    return float(np.clip(expm(Q * u)[0].sum(), 0.0, 1.0))
+
+
+def uncoded_latency(spec: ConvSpec, n: int, params: SystemParams) -> float:
+    """Closed-form E[T^u(n)] (eq. 20): split into n, wait for all (k=n order
+    statistic == max), no encode/decode.
+
+    Matches ``uncoded_latency_mc``'s uneven as-even-as-possible split: the
+    W_O mod n widest workers carry ceil(W_O/n) output columns, the rest
+    floor(W_O/n).  Each worker's round-trip is a *shifted hypoexponential*
+    (deterministic shift N·theta plus the sum of three independent
+    exponential phases, eq. 6), so the expectation of the max is evaluated
+    exactly as the integral of the joint survival function — not with the
+    even-split single-exponential surrogate, which overestimates by ~14%
+    on a 32-wide layer (see tests/test_planner.py).
+    """
+    from scipy import integrate
+
+    from .latency import sizes_for_width
+
+    n = min(n, spec.w_out)
+    w_floor, n_ceil = spec.w_out // n, spec.w_out % n
+    # distinct per-worker load groups: (count, shift, phase rates)
+    groups: list[tuple[int, float, np.ndarray]] = []
+    for width, count in ((w_floor + 1, n_ceil), (w_floor, n - n_ceil)):
+        if count == 0:
+            continue
+        s = sizes_for_width(spec, n, n, width)
+        shift = (s.n_rec * params.theta_rec + s.n_cmp * params.theta_cmp
+                 + s.n_sen * params.theta_sen)
+        rates = np.array([params.mu_rec / s.n_rec, params.mu_cmp / s.n_cmp,
+                          params.mu_sen / s.n_sen])
+        groups.append((count, shift, rates))
+
+    def surv_max(t: float) -> float:
+        prod = 1.0
+        for count, shift, rates in groups:
+            prod *= (1.0 - _hypoexp_sf(t - shift, rates)) ** count
+        return 1.0 - prod
+
+    # E[max] = ∫ P(max > t) dt; the integrand is exactly 1 below the
+    # smallest shift and decays like n·exp(-r_min t) past the largest
+    shifts = [g[1] for g in groups]
+    r_min = min(float(r.min()) for _, _, r in groups)
+    t_cap = max(shifts) + (40.0 + np.log(n + 1.0)) / r_min
+    tail, _ = integrate.quad(surv_max, min(shifts), t_cap,
+                             points=sorted(shifts), limit=200)
+    return float(min(shifts) + tail)
+
+
+def uncoded_latency_mc(
+    spec: ConvSpec,
+    n: int,
+    params: SystemParams,
+    samples: int = 20_000,
+    rng: np.random.Generator | None = None,
+    return_samples: bool = False,
+):
+    rng = rng or np.random.default_rng(0)
+    n = min(n, spec.w_out)
+    # uncoded [8]: as-even-as-possible split ACROSS workers (no master
+    # remainder): W_O % n workers carry ceil(W_O/n) output columns
+    from .latency import sizes_for_width
+
+    w_floor = spec.w_out // n
+    n_ceil = spec.w_out % n
+    cols = []
+    for i in range(n):
+        s = sizes_for_width(spec, n, n, w_floor + (1 if i < n_ceil else 0))
+        cols.append(params.rec.scaled(s.n_rec).sample(rng, (samples,))
+                    + params.cmp.scaled(s.n_cmp).sample(rng, (samples,))
+                    + params.sen.scaled(s.n_sen).sample(rng, (samples,)))
+    total = np.stack(cols, axis=1).max(axis=1)
+    return total if return_samples else float(total.mean())
+
+
+def replication_latency_mc(
+    spec: ConvSpec,
+    n: int,
+    params: SystemParams,
+    samples: int = 20_000,
+    rng: np.random.Generator | None = None,
+    return_samples: bool = False,
+):
+    """2x replication [15]: k = floor(n/2) subtasks, each on two workers;
+    done when every subtask has one finished copy."""
+    rng = rng or np.random.default_rng(0)
+    k = min(max(n // 2, 1), spec.w_out)
+    s = phase_sizes(spec, n, k)
+    tw = _worker_time_samples(s, params, n, samples, rng)  # (samples, n)
+    paired = tw[:, : 2 * k].reshape(samples, 2, k)
+    per_subtask = paired.min(axis=1)  # fastest copy of each subtask
+    total = np.maximum(per_subtask.max(axis=1),
+                       _master_remainder_samples(spec, k, params, samples, rng))
+    return total if return_samples else float(total.mean())
+
+
+# ---------------------------------------------------------------------------
+# §IV-C theory helpers
+# ---------------------------------------------------------------------------
+
+def straggling_index_R(spec: ConvSpec, params: SystemParams) -> float:
+    """R of §IV-C — smaller R = stronger straggling; Prop. 2 needs R <= 1."""
+    I_W = spec.c_in * spec.h_in * spec.w_out * spec.stride
+    O = spec.c_out * spec.h_out * spec.w_out
+    N_cmp = 2 * spec.c_out * spec.h_out * spec.c_in * spec.kernel ** 2 * spec.w_out
+    num = 4 * I_W * params.theta_rec + 4 * O * params.theta_sen + N_cmp * params.theta_cmp
+    den = 4 * I_W / params.mu_rec + 4 * O / params.mu_sen + N_cmp / params.mu_cmp
+    return num / den
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanResult:
+    k_circ: int
+    k_star: int | None
+    L_at_circ: float
+    mc_at_circ: float | None
+
+
+def plan_layer(
+    spec: ConvSpec,
+    n: int,
+    params: SystemParams,
+    with_mc: bool = False,
+    samples: int = 10_000,
+) -> PlanResult:
+    """One-stop planning for a layer: k° (fast) and optionally k* (MC)."""
+    kc = k_circ(spec, n, params)
+    ks = k_star(spec, n, params, samples) if with_mc else None
+    mc = expected_latency_mc(spec, n, kc, params, samples) if with_mc else None
+    return PlanResult(k_circ=kc, k_star=ks, L_at_circ=L(spec, n, kc, params), mc_at_circ=mc)
+
+
+def k_circ_segment(specs, pads, n: int, params: SystemParams,
+                   scheme: str = "mds") -> int:
+    """Segment-level k° (DESIGN.md §9): minimize the segment extension of
+    L(k) — encode/decode amortized over a chain of layers, composed-halo
+    entry transfer, per-layer chain compute, scheme-appropriate order
+    factor, maxed against the master's remainder chain — over integer k.
+
+    Delegates to the ONE implementation of that search (the netplan
+    compiler's per-candidate scoring), so the public planning entry and
+    the cut DP can never drift apart.  For a depth-1 chain this reduces
+    exactly to ``k_circ_remainder_aware`` (pinned in tests/test_netplan.py).
+    """
+    from .netplan import LayerInfo, _plan_segment
+
+    layers = [LayerInfo(f"seg{j}", spec, True, act=None, pad=int(p))
+              for j, (spec, p) in enumerate(zip(specs, pads))]
+    planned = _plan_segment(scheme, layers, n, params)
+    if planned is None:
+        raise ValueError(
+            f"no feasible split for the given chain (W_O="
+            f"{specs[-1].w_out}, n={n}) — every k hits the pad region")
+    return planned[0].k
+
+
+def k_circ_remainder_aware(spec: ConvSpec, n: int, params: SystemParams,
+                           extra_exp: float = 0.0) -> int:
+    """BEYOND-PAPER planner: k° with the master-remainder term included.
+
+    The paper's L(k) (eq. 16) ignores the mod(W_O, k) remainder the master
+    keeps (footnote 2 assumes it is never the bottleneck).  For k choices
+    with large remainders that assumption fails and the paper's k° drifts
+    from k*.  This variant scores every integer k with
+
+        L_ra(k) = encdec(k) + max(worker path(k), E[T_master_rem(k)])
+
+    which closes most of the k°-vs-k* gap (see EXPERIMENTS.md §Perf-planner).
+    """
+    kmax = min(n, spec.w_out)
+    best_k, best_v = 1, np.inf
+    for k in range(1, kmax + 1):
+        s = phase_sizes(spec, n, k)
+        enc_dec = (s.n_enc + s.n_dec) * (1.0 / params.mu_m + params.theta_m)
+        theta_sum = (s.n_rec * params.theta_rec + s.n_cmp * params.theta_cmp
+                     + s.n_sen * params.theta_sen)
+        mu_sum = (s.n_rec / params.mu_rec + s.n_cmp / params.mu_cmp
+                  + s.n_sen / params.mu_sen)
+        order = harmonic(n) - harmonic(n - k)
+        worker_path = theta_sum + (mu_sum + extra_exp) * order
+        rem = spec.w_out % k
+        rem_mean = (spec.subtask_flops(rem)
+                    * (params.theta_cmp + 1.0 / params.mu_cmp) if rem else 0.0)
+        v = enc_dec + max(worker_path, rem_mean)
+        if v < best_v:
+            best_k, best_v = k, v
+    return best_k

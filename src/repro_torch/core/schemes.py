@@ -1,0 +1,809 @@
+"""Unified coding-scheme abstraction for CoCoI (paper §II-B, §V, App. G).
+
+The paper's central claim is that ONE split/encode/execute/any-k-decode
+pipeline works under interchangeable redundancy schemes.  This module makes
+that literal: every scheme implements the :class:`CodingScheme` protocol —
+
+* ``encode``        — k source rows -> n coded rows,
+* ``decodable``     — can this worker subset decode?
+* ``decode_from``   — recover the k source rows from a received subset,
+* ``min_done``      — fewest completions that can possibly decode,
+* ``default_subset``— a canonical decodable subset (for SPMD execution),
+* ``encode_flops`` / ``decode_flops`` — latency-model scaling (eqs. 8/12),
+* ``redundancy_policy(n, spec, params)`` — the scheme's own k choice
+  (k° for MDS, floor(n/2) for replication, ...),
+
+and registers itself under a name (``get_scheme("mds"|"replication"|"lt"|
+"uncoded")``, with ``"coded"`` aliased to ``"mds"``).  The execution layer
+(coded_conv.py / coded_linear.py) and the simulator
+(runtime.py) are written against the protocol only, so "uncoded" stops
+being a special case and new schemes (e.g. sparsity-aware codes, arXiv
+2411.01579) drop in without touching either layer.
+
+Simulation hooks
+----------------
+Each scheme also carries its §V simulation semantics as two classmethods
+consumed by the single generic simulation loop (runtime.py):
+
+* ``sim_plan(spec, n, k, params, scenario)`` -> :class:`SimPlan` — worker
+  count, per-worker phase sizes, master encode/decode/remainder sizes;
+* ``sim_exec(plan, batch)`` — vectorized completion rule mapping a
+  ``(trials, n)`` worker-time batch (+ failure masks + retry samplers) to
+  ``(trials,)`` execution times.
+
+Everything scheme-INDEPENDENT (shift-exponential batch sampling, straggler
+injection, failure sets, master enc/dec/remainder terms, retry sampling)
+lives once in runtime.py.  See DESIGN.md §1 (protocol) and §6 (simulator).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import warnings
+from typing import Callable, Protocol, Sequence, runtime_checkable
+
+import numpy as np
+
+from .coding import (LTCode, MDSCode, ReplicationCode, device_index,
+                     device_matrix)
+from .splitting import ConvSpec
+
+__all__ = [
+    "CodingScheme",
+    "resolve_subset",
+    "commutes_elementwise",
+    "source_of_piece",
+    "chunk_bounds",
+    "decode_blocks",
+    "warm_decode_cache",
+    "SimScenario",
+    "SimPlan",
+    "SimBatch",
+    "MDSScheme",
+    "ReplicationScheme",
+    "LTScheme",
+    "UncodedScheme",
+    "register_scheme",
+    "get_scheme",
+    "scheme_names",
+    "lt_overhead_samples",
+]
+
+
+# ---------------------------------------------------------------------------
+# protocol
+# ---------------------------------------------------------------------------
+
+@runtime_checkable
+class CodingScheme(Protocol):
+    """What the execution layer and the simulator require of a scheme."""
+
+    n: int
+    k: int
+
+    def encode(self, sources): ...
+
+    def decode_from(self, subset: Sequence[int], coded): ...
+
+    def decodable(self, subset: Sequence[int]) -> bool: ...
+
+    @property
+    def min_done(self) -> int: ...
+
+    def default_subset(self) -> list[int]: ...
+
+    def encode_flops(self, row_elems: int) -> int: ...
+
+    def decode_flops(self, row_elems: int) -> int: ...
+
+
+# Whether encoding commutes with elementwise nonlinearities:
+# act(encode(x)) == encode(act(x)) holds iff every generator row has at
+# most one nonzero (selection structure) — replication and uncoded, but
+# NOT MDS/LT mixes (relu(G x) != G relu(x)).  The segment compiler
+# (core/netplan.py) reads this to decide whether coded pieces may stay
+# resident across an interior activation / re-pad boundary, or whether
+# the boundary forces a decode point.  Class-level so the compiler can
+# consult it before instantiating a scheme.
+COMMUTES_ELEMENTWISE: dict[str, bool] = {}
+
+
+def commutes_elementwise(scheme_or_name) -> bool:
+    """True iff the scheme's encode commutes with elementwise functions."""
+    name = (scheme_or_name if isinstance(scheme_or_name, str)
+            else getattr(scheme_or_name, "scheme_name", None))
+    if name is None:
+        return False
+    return COMMUTES_ELEMENTWISE.get(_ALIASES.get(name, name), False)
+
+
+def source_of_piece(scheme: CodingScheme, piece: int) -> int | None:
+    """Which source partition coded piece ``piece`` carries verbatim, or
+    None for a true linear mix (MDS/LT).  Selection schemes route segment
+    entry slices through this instead of a matrix encode, because the edge
+    partitions' composed chains are narrower than the interior ones
+    (splitting.ChainStep.lz/rz) and cannot be stacked row-wise."""
+    if not commutes_elementwise(scheme):
+        return None
+    assign = getattr(scheme, "assignment", None)
+    if callable(assign):  # replication: coded row i holds source i % k
+        return int(assign()[piece])
+    return int(piece)  # uncoded: identity
+
+
+# ---------------------------------------------------------------------------
+# simulation datatypes (shared with runtime.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SimScenario:
+    """§V scenario knobs (shared by every scheme)."""
+
+    n_fail: int = 0          # scenario-2: workers failing per execution
+    straggler_slow: float = 1.0  # scenario-3: one worker's mu_cmp /= slow
+    lt_k: int | None = None  # LT source-symbol count (k_l or k_s)
+    lambda_tr: float = 0.0   # scenario-1: extra Exp(lambda_tr * T_tr_mean)
+    #                          delay added to each wireless transmission
+
+
+@dataclasses.dataclass(frozen=True)
+class SimPlan:
+    """Scheme-resolved sizes for one layer execution."""
+
+    k: int                 # split granularity (source subtask count)
+    n: int                 # participating workers
+    n_rec: np.ndarray      # (n,) per-worker receive bytes (eq. 10)
+    n_cmp: np.ndarray      # (n,) per-worker compute FLOPs (eq. 9)
+    n_sen: np.ndarray      # (n,) per-worker send bytes (eq. 11)
+    n_enc: float = 0.0     # master encode FLOPs (0 -> phase absent)
+    n_dec: float = 0.0     # master decode FLOPs (0 -> phase absent)
+    rem_flops: float = 0.0  # master-local remainder subtask (footnote 2)
+    lt_k: int | None = None  # rateless source count (LT only)
+    rateless: bool = False   # True -> sim_exec samples its own symbol stream
+
+
+@dataclasses.dataclass
+class SimBatch:
+    """One vectorized batch of trials, assembled by runtime._run_scheme.
+
+    ``tw`` is (trials, n) worker round-trip times with scenario effects
+    (straggler / lambda_tr) applied; ``fail`` the (trials, n) failure mask.
+    ``retry_uniform(num, m)`` samples an (num, m) matrix of CLEAN re-execution
+    round-trips at the plan's uniform subtask size; ``retry_per_worker(num)``
+    an (num, n) matrix at each worker's own (possibly uneven) size.
+    """
+
+    tw: np.ndarray
+    fail: np.ndarray
+    rng: np.random.Generator
+    spec: ConvSpec
+    params: object  # SystemParams (kept untyped to avoid an import cycle)
+    scenario: SimScenario
+    retry_uniform: Callable[[int, int], np.ndarray]
+    retry_per_worker: Callable[[int], np.ndarray]
+
+
+def resolve_subset(code: CodingScheme, subset: Sequence[int] | None) -> list[int]:
+    """Shared pipeline gate: default to the scheme's canonical subset, and
+    validate caller-provided subsets.  Without this gate LT's least-squares
+    decode would turn a rank-deficient subset into silently wrong output
+    instead of failing loudly; MDS/replication would crash downstream with
+    confusing low-level errors."""
+    if subset is None:
+        return code.default_subset()  # decodable by construction
+    subset = [int(i) for i in subset]
+    if not code.decodable(subset):
+        raise ValueError(f"subset {subset} is not decodable under {code}")
+    return subset
+
+
+def chunk_bounds(width: int, chunks: int) -> list[tuple[int, int]]:
+    """Split ``width`` columns into up to ``chunks`` contiguous [a, b)
+    blocks, as evenly as possible (earlier blocks take the remainder).
+    The one chunking rule shared by streamed compute, streamed decode, and
+    the delay models, so their block boundaries always agree."""
+    c = max(1, min(int(chunks), int(width)))
+    base, extra = divmod(int(width), c)
+    out, a = [], 0
+    for i in range(c):
+        b = a + base + (1 if i < extra else 0)
+        out.append((a, b))
+        a = b
+    return out
+
+
+def decode_blocks(scheme: CodingScheme, subset: Sequence[int], stacked,
+                  chunks: int = 1):
+    """Decode stacked coded pieces ``(m,) + piece_shape`` into sources
+    ``(k,) + piece_shape`` — optionally incrementally, per column block
+    along the last axis (streamed gather, DESIGN.md §11).
+
+    Chunking only tiles the skinny decode GEMM over column blocks; the
+    decode matrix itself (Vandermonde inverse / LT pseudo-inverse) is
+    solved once and shared via the scheme's lru caches, and each output
+    element is still the same length-m reduction over the same coded
+    values, so the result is identical to the one-shot decode.
+    """
+    import torch
+
+    subset = [int(i) for i in subset]
+    m = stacked.shape[0]
+    piece_shape = stacked.shape[1:]
+    width = int(piece_shape[-1]) if piece_shape else 1
+    c = max(1, min(int(chunks), width))
+    if c <= 1 or not piece_shape:
+        decoded = scheme.decode_from(subset, stacked.reshape(m, -1))
+        return decoded.reshape((scheme.k,) + piece_shape)
+    parts = []
+    for a, b in chunk_bounds(width, c):
+        blk = stacked[..., a:b]
+        dec = scheme.decode_from(subset, blk.reshape(m, -1))
+        parts.append(dec.reshape((scheme.k,) + blk.shape[1:]))
+    return torch.cat(parts, dim=-1)
+
+
+def warm_decode_cache(scheme: CodingScheme, limit: int = 64) -> int:
+    """Precompute the decode matrices ``scheme`` may consume at run time.
+
+    The first decode of a cold process otherwise pays the Vandermonde
+    inverse (MDS) or rank-test + pseudo-inverse (LT) inside a request's
+    TTFT; plan compile time and Engine startup call this so the k-th
+    arrival only ever pays the skinny GEMM.  Subsets are warmed in
+    lexicographic order up to ``limit`` (C(n, k) can explode); selection
+    schemes (replication / uncoded) decode by gather and need no warming.
+    Returns the number of matrices materialized.
+    """
+    import itertools
+
+    n, k = scheme.n, scheme.k
+    warmed = 0
+    if hasattr(scheme, "decode_matrix"):  # MDS-structured
+        for sub in itertools.combinations(range(n), k):
+            if warmed >= limit:
+                break
+            scheme.decode_matrix(list(sub))
+            warmed += 1
+        return warmed
+    if isinstance(scheme, LTScheme):
+        # the canonical prefix first (what SPMD paths consume) ...
+        subs = [tuple(scheme.default_subset())]
+        # ... then k-subsets in lexicographic order; non-decodable ones
+        # (rank < k) are skipped — they can never be consumed
+        subs.extend(itertools.combinations(range(n), k))
+        seen = set()
+        for sub in subs:
+            if warmed >= limit:
+                break
+            if sub in seen:
+                continue
+            seen.add(sub)
+            if not scheme.decodable(list(sub)):
+                continue
+            _lt_decode_matrix(n, k, scheme.seed, scheme.c, scheme.delta, sub)
+            warmed += 1
+    return warmed
+
+
+def _masked_rowmax(a: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Per-trial max of ``a`` over True entries of ``mask`` (0 if none)."""
+    return np.maximum(np.where(mask, a, -np.inf).max(axis=1), 0.0)
+
+
+def _capped_rowmax(a: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Per-row max over the first counts[i] columns of a (rows, m)."""
+    cols = np.arange(a.shape[1])
+    return np.where(cols[None, :] < counts[:, None], a, -np.inf).max(axis=1)
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+_SCHEMES: dict[str, type] = {}
+_ALIASES: dict[str, str] = {"coded": "mds"}
+
+
+def register_scheme(name: str, *aliases: str, commuting: bool = False):
+    """Class decorator: register a scheme under ``name`` (+ aliases).
+
+    ``commuting`` declares that the scheme's encode commutes with
+    elementwise nonlinearities (see :data:`COMMUTES_ELEMENTWISE`).
+    """
+
+    def deco(cls):
+        _SCHEMES[name] = cls
+        for a in aliases:
+            _ALIASES[a] = name
+        cls.scheme_name = name
+        COMMUTES_ELEMENTWISE[name] = commuting
+        return cls
+
+    return deco
+
+
+def get_scheme(name: str) -> type:
+    """Resolve a registered scheme class by name (aliases allowed)."""
+    key = _ALIASES.get(name, name)
+    try:
+        return _SCHEMES[key]
+    except KeyError:
+        raise ValueError(
+            f"unknown coding scheme {name!r}; registered: "
+            f"{sorted(_SCHEMES)} (aliases: {sorted(_ALIASES)})") from None
+
+
+def scheme_names() -> list[str]:
+    return sorted(_SCHEMES)
+
+
+# ---------------------------------------------------------------------------
+# LT overhead (empirical n_d distribution, App. G)
+# ---------------------------------------------------------------------------
+
+def _smallest_full_rank_prefix(rows: np.ndarray, k: int) -> int | None:
+    """Smallest m with rank(rows[:m]) >= k (binary search over prefix rank),
+    or None if even the full matrix is rank-deficient."""
+    if np.linalg.matrix_rank(rows) < k:
+        return None
+    lo, hi = k, rows.shape[0]
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if np.linalg.matrix_rank(rows[:mid]) >= k:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+@functools.lru_cache(maxsize=64)
+def lt_overhead_samples(k: int, trials: int = 200, seed: int = 1234) -> tuple:
+    """Empirical distribution of n_d: symbols needed until rank k (App. G)."""
+    code = LTCode(k)
+    out = []
+    for t in range(trials):
+        rows = code.sample_encoding_matrix(max(4 * k, k + 32), seed=seed + t)
+        m = _smallest_full_rank_prefix(rows, k)
+        # None = undecodable within budget; pessimistically charge it all
+        out.append(m if m is not None else rows.shape[0])
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# shared sim helpers
+# ---------------------------------------------------------------------------
+
+def _uniform_plan(spec: ConvSpec, n: int, k: int, *, enc_dec: bool,
+                  remainder: bool, lt_k: int | None = None,
+                  rateless: bool = False) -> SimPlan:
+    """SimPlan for an even k-way split (coded / replication / LT)."""
+    from .latency import phase_sizes
+
+    s = phase_sizes(spec, n, lt_k if lt_k is not None else k)
+    rem = spec.w_out % k if remainder else 0
+    return SimPlan(
+        k=k, n=n,
+        n_rec=np.full(n, float(s.n_rec)),
+        n_cmp=np.full(n, float(s.n_cmp)),
+        n_sen=np.full(n, float(s.n_sen)),
+        n_enc=float(s.n_enc) if enc_dec else 0.0,
+        n_dec=float(s.n_dec) if enc_dec else 0.0,
+        rem_flops=float(spec.subtask_flops(rem)) if rem else 0.0,
+        lt_k=lt_k, rateless=rateless,
+    )
+
+
+def _retry_shortfall(t_exec: np.ndarray, bad: np.ndarray,
+                     done_max: np.ndarray, detect: np.ndarray,
+                     counts: np.ndarray, batch: SimBatch) -> np.ndarray:
+    """§V re-execution: for trials in ``bad``, re-run ``counts`` subtasks on
+    fresh devices after ``detect`` (the failed workers' would-be completion)
+    and finish at max(already-done, detect + slowest retry)."""
+    retry = batch.retry_uniform(int(bad.sum()), int(counts.max()))
+    t_exec = t_exec.copy()
+    t_exec[bad] = np.maximum(done_max, detect + _capped_rowmax(retry, counts))
+    return t_exec
+
+
+# ---------------------------------------------------------------------------
+# MDS (the paper's CoCoI scheme)
+# ---------------------------------------------------------------------------
+
+@register_scheme("mds")
+class MDSScheme(MDSCode):
+    """(n, k) Vandermonde MDS — done at the k-th completion (eq. 4)."""
+
+    @classmethod
+    def make(cls, n: int, k: int | None = None, *, spec: ConvSpec | None = None,
+             params=None, **kw) -> "MDSScheme":
+        if k is None:
+            k = cls.redundancy_policy(n, spec, params)
+        return cls(n, k, **kw)
+
+    @classmethod
+    def redundancy_policy(cls, n: int, spec: ConvSpec | None = None,
+                          params=None) -> int:
+        """The paper's k° (§IV-A) when (spec, params) are known, else a
+        2-straggler-tolerant default."""
+        if spec is None or params is None:
+            return max(n - 2, 1)
+        from .planner import k_circ
+
+        return min(k_circ(spec, n, params), spec.w_out, n)
+
+    # -- simulation -------------------------------------------------------
+    @classmethod
+    def sim_plan(cls, spec: ConvSpec, n: int, k: int | None, params,
+                 scenario: SimScenario) -> SimPlan:
+        k = k if k is not None else cls.redundancy_policy(n, spec, params)
+        k = min(k, spec.w_out)
+        return _uniform_plan(spec, n, k, enc_dec=True, remainder=True)
+
+    @staticmethod
+    def sim_exec(plan: SimPlan, batch: SimBatch) -> np.ndarray:
+        k = plan.k
+        twf = np.where(batch.fail, np.inf, batch.tw)
+        kth = np.sort(twf, axis=1)[:, k - 1]  # inf where < k survivors
+        bad = ~np.isfinite(kth)
+        if not bad.any():
+            return kth
+        deficit = k - (~batch.fail[bad]).sum(axis=1)
+        detect = _masked_rowmax(batch.tw[bad], batch.fail[bad])
+        done_max = _masked_rowmax(batch.tw[bad], ~batch.fail[bad])
+        return _retry_shortfall(kth, bad, done_max, detect, deficit, batch)
+
+
+# ---------------------------------------------------------------------------
+# replication [15]
+# ---------------------------------------------------------------------------
+
+@register_scheme("replication", commuting=True)
+class ReplicationScheme(ReplicationCode):
+    """2x replication: k = floor(n/2) subtasks, each on two workers."""
+
+    @classmethod
+    def make(cls, n: int, k: int | None = None, **kw) -> "ReplicationScheme":
+        # k is structural (floor(n/2)); an explicit k fixes n = 2k instead.
+        if k is not None and max(n // 2, 1) != k:
+            warnings.warn(
+                f"replication: k={k} is incompatible with n={n} "
+                f"(k = floor(n/2)); using n={2 * k} workers instead",
+                stacklevel=2)
+            n = 2 * k
+        return cls(n)
+
+    @classmethod
+    def redundancy_policy(cls, n: int, spec: ConvSpec | None = None,
+                          params=None) -> int:
+        k = max(n // 2, 1)
+        return min(k, spec.w_out) if spec is not None else k
+
+    # -- simulation -------------------------------------------------------
+    @classmethod
+    def sim_plan(cls, spec: ConvSpec, n: int, k: int | None, params,
+                 scenario: SimScenario) -> SimPlan:
+        k = cls.redundancy_policy(n, spec)
+        return _uniform_plan(spec, n, k, enc_dec=False, remainder=False)
+
+    @staticmethod
+    def sim_exec(plan: SimPlan, batch: SimBatch) -> np.ndarray:
+        k = plan.k
+        twf = np.where(batch.fail, np.inf, batch.tw)
+        per_subtask = twf[:, : 2 * k].reshape(-1, 2, k).min(axis=1)  # (T, k)
+        t_exec = per_subtask.max(axis=1)
+        lost = np.isinf(per_subtask)  # both replicas failed
+        bad = lost.any(axis=1)
+        if not bad.any():
+            return t_exec
+        # detection at the failed workers' would-be completion (same
+        # semantics as MDS — the seed inconsistently used the survivors).
+        # Only the 2k ASSIGNED workers count: an odd-n spare holds no
+        # subtask, so its failure signals nothing.
+        assigned = np.s_[:, : 2 * k]
+        detect = _masked_rowmax(batch.tw[bad][assigned],
+                                batch.fail[bad][assigned])
+        done_max = _masked_rowmax(per_subtask[bad], ~lost[bad])
+        return _retry_shortfall(t_exec, bad, done_max, detect,
+                                lost[bad].sum(axis=1), batch)
+
+
+# ---------------------------------------------------------------------------
+# uncoded [8]
+# ---------------------------------------------------------------------------
+
+@register_scheme("uncoded", commuting=True)
+@dataclasses.dataclass(frozen=True)
+class UncodedScheme:
+    """No redundancy: n = k disjoint subtasks, wait for all of them.
+
+    The identity code — making "uncoded" a scheme removes the special case
+    from the runtime and lets the execution layer run it through the same
+    split/encode/execute/decode pipeline (encode/decode are permutations).
+    """
+
+    n: int
+
+    @property
+    def k(self) -> int:
+        return self.n
+
+    @property
+    def r(self) -> int:
+        return 0
+
+    @property
+    def min_done(self) -> int:
+        return self.n
+
+    def default_subset(self) -> list[int]:
+        return list(range(self.n))
+
+    def encode(self, sources):
+        if sources.shape[0] != self.k:
+            raise ValueError(f"expected {self.k} source rows, got {sources.shape[0]}")
+        return sources
+
+    def decodable(self, subset: Sequence[int]) -> bool:
+        return {int(i) for i in subset} == set(range(self.n))
+
+    def decode_from(self, subset: Sequence[int], coded):
+        subset = [int(i) for i in subset]
+        if not self.decodable(subset):
+            raise ValueError("uncoded needs every worker's output")
+        # first received copy of each source row (duplicates carry no
+        # information but must not break the decodable() => decodes contract)
+        pos: dict[int, int] = {}
+        for p, i in enumerate(subset):
+            pos.setdefault(i, p)
+        order = [pos[s] for s in range(self.n)]
+        return coded.index_select(0, device_index(order, coded.device))
+
+    def encode_flops(self, row_elems: int) -> int:
+        return 0
+
+    def decode_flops(self, row_elems: int) -> int:
+        return 0
+
+    @classmethod
+    def make(cls, n: int, k: int | None = None, **kw) -> "UncodedScheme":
+        # uncoded has no redundancy: n == k structurally.  Like
+        # ReplicationScheme.make, an explicit k wins and fixes n = k.
+        if k is not None and k != n:
+            warnings.warn(
+                f"uncoded: n={n} is incompatible with k={k} (no redundancy "
+                f"means n == k); using n={k} workers instead", stacklevel=2)
+            n = k
+        return cls(n)
+
+    @classmethod
+    def redundancy_policy(cls, n: int, spec: ConvSpec | None = None,
+                          params=None) -> int:
+        return min(n, spec.w_out) if spec is not None else n
+
+    # -- simulation -------------------------------------------------------
+    @classmethod
+    def sim_plan(cls, spec: ConvSpec, n: int, k: int | None, params,
+                 scenario: SimScenario) -> SimPlan:
+        from .latency import sizes_for_width
+
+        # layers with W_O < n can only be split W_O ways (late ResNet layers)
+        n = min(n, spec.w_out)
+        # as-even-as-possible split ACROSS workers (no master remainder):
+        # W_O % n workers get ceil(W_O/n) columns, the rest floor(W_O/n)
+        w_floor, n_ceil = spec.w_out // n, spec.w_out % n
+        widths = [w_floor + 1] * n_ceil + [w_floor] * (n - n_ceil)
+        sizes = [sizes_for_width(spec, n, n, w) for w in widths]
+        return SimPlan(
+            k=n, n=n,
+            n_rec=np.array([s.n_rec for s in sizes], dtype=float),
+            n_cmp=np.array([s.n_cmp for s in sizes], dtype=float),
+            n_sen=np.array([s.n_sen for s in sizes], dtype=float),
+        )
+
+    @staticmethod
+    def sim_exec(plan: SimPlan, batch: SimBatch) -> np.ndarray:
+        tw, fail = batch.tw, batch.fail
+        if not fail.any():
+            return tw.max(axis=1)
+        # failed subtasks re-executed on fresh devices at the SAME width;
+        # detection at the failed worker's would-be completion time
+        retry = batch.retry_per_worker(tw.shape[0])
+        return np.where(fail, tw + retry, tw).max(axis=1)
+
+
+# ---------------------------------------------------------------------------
+# LT / rateless (App. G)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=256)
+def _lt_rows(n: int, k: int, seed: int, c: float, delta: float) -> np.ndarray:
+    rows = LTCode(k, c, delta).sample_encoding_matrix(n, seed=seed)
+    rows.setflags(write=False)
+    return rows
+
+
+@functools.lru_cache(maxsize=1024)
+def _lt_decode_matrix(n: int, k: int, seed: int, c: float, delta: float,
+                      subset: tuple) -> np.ndarray:
+    """(k, m) least-squares decode matrix (pseudo-inverse of the received
+    rows) for one LT subset — cached so streamed per-block decodes and
+    repeat arrivals share a single solve, mirroring
+    ``coding.decode_matrix_cached`` for MDS."""
+    rows = _lt_rows(n, k, seed, c, delta)[np.asarray(subset)]
+    D = np.linalg.pinv(rows)
+    D.setflags(write=False)
+    return D
+
+
+@functools.lru_cache(maxsize=256)
+def _lt_default_subset(n: int, k: int, seed: int, c: float,
+                       delta: float) -> tuple:
+    """Smallest decodable prefix — cached: the rank search is host-side
+    work fully determined by the scheme parameters."""
+    m = _smallest_full_rank_prefix(_lt_rows(n, k, seed, c, delta), k)
+    if m is None:
+        raise ValueError(f"LT matrix (n={n}, k={k}, seed={seed}) is not full"
+                         " rank; use a larger n or another seed")
+    return tuple(range(m))
+
+
+@register_scheme("lt")
+@dataclasses.dataclass(frozen=True)
+class LTScheme:
+    """Luby-Transform rateless code with a fixed sampled encoding matrix.
+
+    The seed's LTCode exposed loose static methods around caller-managed
+    encoding matrices; this wrapper pins an (n, k) matrix (deterministic in
+    ``seed``) so LT satisfies the same protocol as everything else.  The
+    rateless character survives in the simulator (sim_exec streams symbols
+    until the empirical n_d is met) and in ``decodable``'s rank test.
+    """
+
+    n: int
+    k: int
+    seed: int = 0
+    c: float = 0.1
+    delta: float = 0.05
+
+    # rateless: fresh coded rows can be minted beyond n without touching
+    # the first n rows (see extend) — the elasticity-native property the
+    # executor keys on (``getattr(scheme, "rateless", False)``).
+    rateless = True
+
+    def __post_init__(self):
+        if not 1 <= self.k <= self.n:
+            raise ValueError(f"need 1 <= k <= n, got n={self.n} k={self.k}")
+
+    def extend(self, extra: int) -> "LTScheme":
+        """Rateless extension: an (n + extra, k) scheme whose first n coded
+        rows are IDENTICAL to this one's.
+
+        ``LTCode.sample_encoding_matrix(m, seed)`` draws rows sequentially
+        from one ``default_rng(seed)`` stream, so sampling more rows never
+        perturbs the prefix — surviving workers' pieces stay valid with no
+        re-encode, and a late joiner just gets rows [n, n + extra).  This
+        is what MDS structurally cannot do (its generator is a function of
+        n), and why churn makes LT the native serving code (DESIGN.md §12).
+        """
+        if extra < 0:
+            raise ValueError(f"need extra >= 0, got {extra}")
+        if extra == 0:
+            return self
+        return LTScheme(self.n + extra, self.k, seed=self.seed, c=self.c,
+                        delta=self.delta)
+
+    @property
+    def r(self) -> int:
+        return self.n - self.k
+
+    @property
+    def rows(self) -> np.ndarray:
+        return _lt_rows(self.n, self.k, self.seed, self.c, self.delta)
+
+    @property
+    def min_done(self) -> int:
+        return self.k  # optimistic; actual need is the stochastic n_d >= k
+
+    def default_subset(self) -> list[int]:
+        """Smallest decodable prefix of the coded rows (cached)."""
+        return list(_lt_default_subset(self.n, self.k, self.seed, self.c,
+                                       self.delta))
+
+    def decodable(self, subset: Sequence[int]) -> bool:
+        idx = [int(i) for i in subset]
+        if not idx or not all(0 <= i < self.n for i in idx):
+            return False
+        return np.linalg.matrix_rank(self.rows[np.asarray(idx)]) >= self.k
+
+    def encode(self, sources):
+        """(k, F) -> (n, F) through the same skinny-GEMM kernel as MDS."""
+        if sources.shape[0] != self.k:
+            raise ValueError(f"expected {self.k} source rows, got {sources.shape[0]}")
+        from ..kernels.ops import mds_encode
+
+        E = device_matrix(
+            ("lt_rows", self.n, self.k, self.seed, self.c, self.delta),
+            lambda: self.rows, sources.dtype, sources.device)
+        return mds_encode(E, sources)
+
+    def decode_from(self, subset: Sequence[int], coded):
+        """Least-squares decode over the received rows (m >= k allowed) —
+        applied as a cached pseudo-inverse through the same skinny-GEMM
+        kernel as MDS, so the per-subset solve is paid once (warmable at
+        startup) instead of per call as the seed's ``lstsq`` was."""
+        from ..kernels.ops import mds_decode
+
+        sub = tuple(int(i) for i in subset)
+        D = device_matrix(
+            ("lt_d", self.n, self.k, self.seed, self.c, self.delta, sub),
+            lambda: _lt_decode_matrix(self.n, self.k, self.seed, self.c,
+                                      self.delta, sub),
+            coded.dtype, coded.device)
+        return mds_decode(D, coded)
+
+    def encode_flops(self, row_elems: int) -> int:
+        return int(2 * self.rows.sum() * row_elems)  # XOR-sums of d sources
+
+    def decode_flops(self, row_elems: int) -> int:
+        return 2 * self.k * self.k * row_elems  # Gaussian elimination
+
+    @classmethod
+    def make(cls, n: int, k: int | None = None, *, spec: ConvSpec | None = None,
+             params=None, seed: int = 0, **kw) -> "LTScheme":
+        if k is None:
+            k = cls.redundancy_policy(n, spec, params)
+        # rateless codes only decode w.h.p. — deterministically walk seeds
+        # until the n sampled rows reach rank k (mirrors a real LT stream
+        # emitting symbols until the receiver can decode)
+        for s in range(seed, seed + 64):
+            cand = cls(n, k, seed=s, **kw)
+            if np.linalg.matrix_rank(cand.rows) >= k:
+                return cand
+        raise ValueError(f"no full-rank LT matrix found for (n={n}, k={k})"
+                         f" in seeds [{seed}, {seed + 64})")
+
+    @classmethod
+    def redundancy_policy(cls, n: int, spec: ConvSpec | None = None,
+                          params=None) -> int:
+        """LtCoI-k_s: as many sources as workers allow (App. G)."""
+        return min(n, spec.w_out) if spec is not None else n
+
+    # -- simulation -------------------------------------------------------
+    @classmethod
+    def sim_plan(cls, spec: ConvSpec, n: int, k: int | None, params,
+                 scenario: SimScenario) -> SimPlan:
+        lt_k = scenario.lt_k or min(n, spec.w_out)
+        plan = _uniform_plan(spec, n, lt_k, enc_dec=True, remainder=False,
+                             lt_k=lt_k, rateless=True)
+        # GE decode cost replaces the MDS n_dec (seed's 2 k^2 N_sen / 4 term)
+        return dataclasses.replace(
+            plan, k=lt_k, n_dec=2.0 * lt_k ** 2 * plan.n_sen[0] / 4.0)
+
+    @staticmethod
+    def sim_exec(plan: SimPlan, batch: SimBatch) -> np.ndarray:
+        """Rateless stream: workers emit symbols until n_d have arrived."""
+        rng, params, scenario = batch.rng, batch.params, batch.scenario
+        trials, n = batch.fail.shape
+        nd = np.asarray(lt_overhead_samples(plan.lt_k))
+        n_d = rng.choice(nd, size=trials)
+        alive = np.maximum(n - batch.fail.sum(axis=1), 1)
+        # cap symbols per worker generously (per trial)
+        per_worker = np.ceil(3 * n_d / alive).astype(int) + 2
+        m = int(per_worker.max())
+        rec = params.rec.scaled(plan.n_rec[0]).sample(rng, (trials, n))
+        cmp_ = params.cmp.scaled(plan.n_cmp[0]).sample(rng, (trials, n, m))
+        sen = params.sen.scaled(plan.n_sen[0]).sample(rng, (trials, n, m))
+        if scenario.lambda_tr > 0.0:
+            rec = rec + rng.exponential(
+                scenario.lambda_tr * params.rec.scaled(plan.n_rec[0]).mean(),
+                size=(trials, n))
+            sen = sen + rng.exponential(
+                scenario.lambda_tr * params.sen.scaled(plan.n_sen[0]).mean(),
+                size=(trials, n, m))
+        arrive = rec[:, :, None] + np.cumsum(cmp_, axis=2) + sen
+        arrive = np.where(batch.fail[:, :, None], np.inf, arrive)
+        sym = np.arange(m)
+        arrive = np.where(sym[None, None, :] < per_worker[:, None, None],
+                          arrive, np.inf)
+        flat = np.sort(arrive.reshape(trials, -1), axis=1)
+        idx = np.minimum(n_d - 1, flat.shape[1] - 1)
+        return flat[np.arange(trials), idx]

@@ -1,0 +1,331 @@
+"""Input/output splitting for coded distributed execution (paper §II-B.1).
+
+The split is *output-driven*: the output feature map is cut into k equal
+width-slices, and each slice's input range is derived from the conv
+geometry (eqs. 1-2):
+
+    W_I^p(k) = K_W + (W_O^p(k) - 1) * S_W                       (1)
+    a_I = a_O * S_W,   b_I = (b_O - 1) * S_W + K_W              (2)
+
+Adjacent input partitions overlap by the halo K_W - S_W.  When W_O is not
+divisible by k the master keeps the remainder subtask locally (paper
+footnote 2).
+
+For transformer GEMMs (coded_linear) the "conv" degenerates to K=S=1:
+partitions are disjoint token slices with no halo.
+
+Network-level (segment) splitting
+---------------------------------
+``plan_segment_split`` composes eqs. 1-2 backward through a *chain* of
+conv layers: a depth-d segment's entry input range per final-output slice
+is derived in one shot, so a worker's whole chain of convs is
+self-contained — the per-layer halo (K_W - S_W columns) is shipped once
+with the entry partition instead of round-tripping through the master at
+every layer (core/netplan.py).  Interior layers may re-pad their input
+(the usual SAME-style conv): the pad columns are *zeros for the two edge
+partitions only* — interior partitions read true halo columns there — so
+each partition's chain carries per-layer zero-injection counts
+(``ChainStep.lz``/``rz``), and the edge chains are narrower than the
+interior ones by exactly those counts.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+__all__ = [
+    "ConvSpec",
+    "Partition",
+    "SplitPlan",
+    "plan_width_split",
+    "plan_token_split",
+    "ChainStep",
+    "ChainPlan",
+    "SegmentSplitPlan",
+    "chain_steps",
+    "plan_segment_split",
+    "validate_chain_geometry",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSpec:
+    """Geometry of a 2D conv layer (paper Table II).
+
+    Width/height of the *padded* input I; kernel/stride on the width dim.
+    """
+
+    c_in: int
+    c_out: int
+    h_in: int
+    w_in: int  # padded input width W_I
+    kernel: int  # K_W (square kernel)
+    stride: int = 1
+    batch: int = 1
+
+    @property
+    def w_out(self) -> int:
+        return (self.w_in - self.kernel) // self.stride + 1
+
+    @property
+    def h_out(self) -> int:
+        return (self.h_in - self.kernel) // self.stride + 1
+
+    def subtask_flops(self, w_out_p: int) -> int:
+        """N^cmp(k) of eq. (9) for an output slice of width w_out_p."""
+        return (
+            self.batch * self.c_out * self.h_out * w_out_p * 2 * self.c_in * self.kernel ** 2
+        )
+
+    def recv_bytes(self, w_in_p: int) -> int:
+        """N^rec(k) of eq. (10): f32 bytes of one input partition."""
+        return 4 * self.batch * self.c_in * self.h_in * w_in_p
+
+    def send_bytes(self, w_out_p: int) -> int:
+        """N^sen(k) of eq. (11): f32 bytes of one output partition."""
+        return 4 * self.batch * self.c_out * self.h_out * w_out_p
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """One source subtask: output range [a_o, b_o) and input range [a_i, b_i)."""
+
+    a_o: int
+    b_o: int
+    a_i: int
+    b_i: int
+
+    @property
+    def w_out(self) -> int:
+        return self.b_o - self.a_o
+
+    @property
+    def w_in(self) -> int:
+        return self.b_i - self.a_i
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """k equal partitions + an optional master-kept remainder (footnote 2)."""
+
+    k: int
+    parts: Tuple[Partition, ...]
+    remainder: Partition | None  # executed locally by the master
+
+    @property
+    def w_out_p(self) -> int:
+        return self.parts[0].w_out
+
+    @property
+    def w_in_p(self) -> int:
+        return self.parts[0].w_in
+
+
+def plan_width_split(spec: ConvSpec, k: int) -> SplitPlan:
+    """Split ``spec``'s output into k equal width slices (eqs. 1-2)."""
+    w_o = spec.w_out
+    if not 1 <= k <= w_o:
+        raise ValueError(f"need 1 <= k <= W_O={w_o}, got k={k}")
+    w_o_p = w_o // k  # floor(W_O / k)
+    parts: List[Partition] = []
+    for i in range(k):
+        a_o, b_o = i * w_o_p, (i + 1) * w_o_p
+        a_i = a_o * spec.stride
+        b_i = (b_o - 1) * spec.stride + spec.kernel
+        parts.append(Partition(a_o, b_o, a_i, b_i))
+    rem = None
+    if w_o % k:
+        a_o, b_o = k * w_o_p, w_o
+        rem = Partition(a_o, b_o, a_o * spec.stride, (b_o - 1) * spec.stride + spec.kernel)
+    # sanity: equal widths, eq. (1) satisfied, coverage of the input
+    assert all(p.w_out == w_o_p for p in parts)
+    assert all(p.w_in == spec.kernel + (w_o_p - 1) * spec.stride for p in parts)
+    return SplitPlan(k=k, parts=tuple(parts), remainder=rem)
+
+
+# ---------------------------------------------------------------------------
+# network-level (segment) splitting: eqs. 1-2 composed through a layer chain
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ChainStep:
+    """One layer of a partition's chain.
+
+    ``[a_i, b_i)`` is the input range this step reads — in the segment's
+    (pre-padded) entry coordinates for step 0, in the previous layer's
+    *unpadded* output coordinates otherwise.  ``lz``/``rz`` are the zero
+    columns injected left/right of that input before the conv (the part of
+    the interior re-pad that falls outside the previous output — nonzero
+    only for the two edge partitions).  ``[a_o, b_o)`` is the output range
+    produced, in this layer's unpadded output coordinates.
+    """
+
+    a_i: int
+    b_i: int
+    lz: int
+    rz: int
+    a_o: int
+    b_o: int
+
+    @property
+    def w_in(self) -> int:
+        return self.b_i - self.a_i
+
+    @property
+    def w_out(self) -> int:
+        return self.b_o - self.a_o
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """Per-layer schedule of one partition's self-contained conv chain."""
+
+    steps: Tuple[ChainStep, ...]
+
+    @property
+    def entry(self) -> ChainStep:
+        return self.steps[0]
+
+    @property
+    def exit(self) -> ChainStep:
+        return self.steps[-1]
+
+    @property
+    def w_entry(self) -> int:
+        return self.steps[0].w_in
+
+    @property
+    def w_exit(self) -> int:
+        return self.steps[-1].w_out
+
+    @property
+    def zero_free(self) -> bool:
+        """True iff no step injects pad zeros (interior partitions)."""
+        return all(s.lz == 0 and s.rz == 0 for s in self.steps)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentSplitPlan:
+    """k composed partitions + the master-kept remainder chain (footnote 2).
+
+    ``uniform`` is True when every partition's chain has identical local
+    structure (equal widths at every step, no zero injection) — the
+    precondition for matrix-form encode of the stacked entry slices
+    (linear schemes); selection schemes route slices by source partition
+    and tolerate the non-uniform edge chains.
+    """
+
+    k: int
+    parts: Tuple[ChainPlan, ...]
+    remainder: ChainPlan | None
+
+    @property
+    def uniform(self) -> bool:
+        p0 = self.parts[0]
+        widths0 = tuple((s.w_in, s.w_out) for s in p0.steps)
+        return all(
+            p.zero_free and tuple((s.w_in, s.w_out) for s in p.steps) == widths0
+            for p in self.parts
+        )
+
+    @property
+    def w_entry_max(self) -> int:
+        return max(p.w_entry for p in self.parts)
+
+
+def validate_chain_geometry(specs: Sequence[ConvSpec],
+                            pads: Sequence[int]) -> None:
+    """Check that ``specs`` chain: layer j's (padded) input is layer j-1's
+    output re-padded by ``pads[j]`` on both H and W; channels connect.
+    ``pads[0]`` is the entry pad (applied by the caller before the split)
+    and is not validated here."""
+    if len(specs) != len(pads):
+        raise ValueError(f"{len(specs)} specs but {len(pads)} pads")
+    for j in range(1, len(specs)):
+        prev, cur, p = specs[j - 1], specs[j], int(pads[j])
+        if cur.c_in != prev.c_out:
+            raise ValueError(
+                f"layer {j}: c_in={cur.c_in} != previous c_out={prev.c_out}")
+        if cur.w_in != prev.w_out + 2 * p or cur.h_in != prev.h_out + 2 * p:
+            raise ValueError(
+                f"layer {j}: padded input {cur.h_in}x{cur.w_in} does not "
+                f"chain from previous output {prev.h_out}x{prev.w_out} "
+                f"with pad {p}")
+        if cur.batch != prev.batch:
+            raise ValueError(f"layer {j}: batch mismatch")
+
+
+def chain_steps(specs: Sequence[ConvSpec], pads: Sequence[int],
+                a_o: int, b_o: int) -> Tuple[ChainStep, ...]:
+    """Fold eqs. 1-2 backward through the chain for one final-output range.
+
+    Returns one :class:`ChainStep` per layer.  For d == 1 this reduces to
+    eq. 2 exactly: ``a_i = a_o * S_W``, ``b_i = (b_o - 1) * S_W + K_W``.
+    Interior boundaries (j >= 1) map the layer's padded-input range back to
+    the previous layer's unpadded output, clipping at the pad region and
+    recording the clipped columns as zero injections.
+    """
+    d = len(specs)
+    if d == 0:
+        raise ValueError("need at least one layer")
+    if not 0 <= a_o < b_o <= specs[-1].w_out:
+        raise ValueError(
+            f"output range [{a_o}, {b_o}) outside [0, {specs[-1].w_out})")
+    steps: List[ChainStep | None] = [None] * d
+    a, b = a_o, b_o
+    for j in range(d - 1, -1, -1):
+        s = specs[j]
+        A = a * s.stride                      # eq. 2, padded-input coords
+        B = (b - 1) * s.stride + s.kernel
+        if j == 0:
+            steps[0] = ChainStep(A, B, 0, 0, a, b)
+        else:
+            p = int(pads[j])
+            w_prev = specs[j - 1].w_out
+            ap = max(0, A - p)
+            bp = min(w_prev, B - p)
+            if ap >= bp:
+                raise ValueError(
+                    f"layer {j}: range [{A}, {B}) falls entirely in the pad "
+                    "region — segment too deep for this output slice")
+            steps[j] = ChainStep(ap, bp, ap - (A - p), (B - p) - bp, a, b)
+            a, b = ap, bp
+    return tuple(steps)  # type: ignore[return-value]
+
+
+def plan_segment_split(specs: Sequence[ConvSpec], pads: Sequence[int],
+                       k: int) -> SegmentSplitPlan:
+    """Split the *final* output of a layer chain into k equal width slices
+    and derive every partition's self-contained chain in one shot.
+
+    The W_O mod k remainder columns stay on the master (footnote 2), which
+    runs the same composed chain locally.  For a depth-1 chain the
+    partition ranges coincide with :func:`plan_width_split`.
+    """
+    validate_chain_geometry(specs, pads)
+    w_o = specs[-1].w_out
+    if not 1 <= k <= w_o:
+        raise ValueError(f"need 1 <= k <= W_O={w_o}, got k={k}")
+    w_o_p = w_o // k
+    parts = tuple(
+        ChainPlan(chain_steps(specs, pads, i * w_o_p, (i + 1) * w_o_p))
+        for i in range(k)
+    )
+    rem = None
+    if w_o % k:
+        rem = ChainPlan(chain_steps(specs, pads, k * w_o_p, w_o))
+    return SegmentSplitPlan(k=k, parts=parts, remainder=rem)
+
+
+def plan_token_split(num_tokens: int, k: int) -> SplitPlan:
+    """Degenerate K=S=1 split for linear ops: disjoint token slices."""
+    if not 1 <= k <= num_tokens:
+        raise ValueError(f"need 1 <= k <= tokens={num_tokens}, got k={k}")
+    t_p = num_tokens // k
+    parts = tuple(
+        Partition(i * t_p, (i + 1) * t_p, i * t_p, (i + 1) * t_p) for i in range(k)
+    )
+    rem = None
+    if num_tokens % k:
+        rem = Partition(k * t_p, num_tokens, k * t_p, num_tokens)
+    return SplitPlan(k=k, parts=parts, remainder=rem)

@@ -1,0 +1,111 @@
+"""Direct VALID 2-D convolution: the worker's conv subtask, and every other
+convolution of the CNN path.
+
+Source note
+-----------
+Replaces the Pallas TPU kernel ``src/repro/kernels/conv2d.py::conv2d_pallas``
+(body ``_conv_kernel``).  That kernel takes one image ``(C_I, H, W_p)``, holds
+it whole in fast memory and tiles output channels; this one takes the batch
+``(N, C_I, H, W_p)`` — the n coded pieces of the functional pipeline fold
+into N — and :func:`repro_torch.kernels.ops.conv2d_subtask` is its N = 1 view.
+
+What bounds it on an H100: the f32 FMA rate (at VGG16 widths each byte
+moved feeds hundreds of multiply-adds).
+
+What the design does about it (``csrc/conv2d.cu``): implicit GEMM
+``out (C_O, P) = w (C_O, R) @ patch (R, P)`` with ``R = C_I*K*K`` and
+``P = N*H_O*W_O``; a block owns a 64 x 64 tile of (C_O, pixels flattened
+over the batch) so that pieces as narrow as ``W_O = 2`` still fill tiles,
+loops over R in steps of 16 through shared memory and keeps a 4 x 4 block
+of f32 accumulators per thread.  No im2col buffer exists.  All edges are
+masked: any C_O, K and stride.  Inputs are upcast to f32, accumulated with
+plain ``fmaf`` (no TF32), rounded once to x's dtype.
+
+Width slices: x is read through its strides, so ``x[..., a:b]`` is not
+copied; w is made contiguous if it is not; the output is contiguous.
+
+On a CPU tensor the wrapper computes :func:`conv2d_plain`.  On a CUDA tensor
+it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = ["conv2d", "conv2d_plain"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_count_lock = threading.Lock()
+
+
+def conv2d_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1
+                 ) -> torch.Tensor:
+    """Plain PyTorch version: ``F.conv2d`` in f32, cast to x's dtype."""
+    return F.conv2d(x.float(), w.float(), stride=stride).to(x.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("conv2d")
+    fn = lib.conv2d_launch
+    if not fn.argtypes:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 4
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """x: (N, C_I, H_I, W_I), w: (C_O, C_I, K, K) -> (N, C_O, H_O, W_O)."""
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"need x (N, C, H, W) and w (O, I, K, K), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    N, c_in, h_in, w_in = x.shape
+    c_out, c_in2, K, K2 = w.shape
+    stride = int(stride)
+    if c_in != c_in2 or K != K2 or stride < 1:
+        raise ValueError(f"mismatched conv: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, stride {stride}")
+    if h_in < K or w_in < K:
+        raise ValueError(f"input {h_in}x{w_in} smaller than kernel {K}")
+    if x.numel() == 0 or w.numel() == 0:
+        raise ValueError(f"empty operand: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}")
+    if x.device != w.device:
+        raise ValueError(f"x is on {x.device}, w on {w.device}")
+    if x.dtype != w.dtype:
+        raise TypeError(f"x is {x.dtype}, w is {w.dtype}")
+    if x.device.type == "cpu":
+        return conv2d_plain(x, w, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"conv2d kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    h_out = (h_in - K) // stride + 1
+    w_out = (w_in - K) // stride + 1
+    if N * h_out * w_out >= 2 ** 31 or (c_out + 63) // 64 > 65535:
+        raise ValueError(f"shape out of range for the kernel: {tuple(x.shape)}")
+    w = w.contiguous()
+    out = torch.empty((N, c_out, h_out, w_out), dtype=x.dtype, device=x.device)
+    sn, sc, sh, sw = x.stride()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().conv2d_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), N, c_in, c_out,
+            h_out, w_out, K, stride, sn, sc, sh, sw, _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"conv2d launch failed: CUDA error {err} "
+                           f"(x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                           f"stride {stride}, {x.dtype})")
+    with _count_lock:
+        conv2d.launches += 1
+    return out
+
+
+conv2d.launches = 0  # kernel launches so far (not plain-version calls)
