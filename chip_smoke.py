@@ -11,34 +11,48 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 1. ``device``    — card name and power limit (``nvidia-smi``), torch and CUDA
                    versions, kernel build seconds.
 2. ``kernels``   — every ported kernel against its plain PyTorch version on
-                   the card, at the shapes the VGG16 path gives it and at
-                   the edge shapes (ragged F, C_O = 7, K in {1, 5, 7}, stride
-                   2, width slices, bf16), with times, bounds and the
-                   library yardstick (``torch.matmul`` / ``F.conv2d``, TF32
-                   off — timed here, never called by the port).
+                   the card, at the shapes the VGG16 and Zamba2 paths give
+                   it and at the edge shapes (ragged F, C_O = 7, K in
+                   {1, 5, 7}, stride 2, width slices, a ragged SSD chunk,
+                   Mamba2-2.7B's SSD heads, bf16), with times, bounds and
+                   the library yardstick (``torch.matmul`` / ``F.conv2d``,
+                   TF32 off — timed here, never called by the port; the SSD
+                   chunk has none).  The SSD cases are also held against an
+                   f64 sequential scan.
 3. ``coded_ops`` — ``coded_conv2d`` and ``coded_matmul`` through a
                    ``CodedExecutor`` with one dead worker and one straggler,
                    against the uncoded result.
 4. ``vgg16``     — the main path: VGG16 at 224x224, f32, seeded random
                    weights, served through ``vgg16_forward`` on a worker pool
                    (requests of batch 1, 4, 1 on the virtual clock, two
-                   more under torch.profiler, one on the real clock),
+                   more under torch.profiler, two on the real clock: the
+                   first on fresh worker streams, the second on warm ones),
                    logits held against the
                    same network run uncoded through ``F.conv2d``; launch
                    counters prove the kernels carried the path.
+5. ``zamba2``    — the second path: Zamba2-1.2B at full width (38 Mamba2
+                   layers, d_model 2048, 64 SSD heads, the shared
+                   attention + FFN block after every 6th layer), f32,
+                   seeded random weights, served by ``Engine(coded=(10, 6),
+                   executor=CodedExecutor(10, ...))`` with one dead worker
+                   and a 50x straggler: 8 prompts of 512 tokens and 4 of
+                   200, 16 new tokens each.  Prefill and per-step logits are
+                   held against the same weights run uncoded, and the SSD
+                   and skinny-GEMM launch counts against the design.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  There is no fallback: no GPU, a kernel
 that does not build or launch, or any failed check ends the run with a
 non-zero exit code and no result line.
 
-``--phases kernels,vgg16`` runs a subset (for debugging; the result line is
+``--phases kernels,zamba2`` runs a subset (for debugging; the result line is
 only printed when every phase ran).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,7 +67,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 SEED = 0
 N_WORKERS = 10
-ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16")
+ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16", "zamba2")
 
 
 def emit(obj: dict) -> None:
@@ -192,6 +206,24 @@ def gemm_cases(torch):
         ("piece GEMM 171x1024x4096", (171, 1024), 4096, f32, False),
         ("piece GEMM 171x1024x4096 bf16", (171, 1024), 4096, bf16, False),
         ("piece GEMM 37x48x80", (37, 48), 80, f32, False),
+        # Zamba2-1.2B's coded FFN (n=10, k=6): prefill B=8, T=512 -> 4096
+        # tokens, t_p = 682; prefill B=4, T=200 -> t_p = 133; decode B=8 ->
+        # t_p = 1.  w_in / w_gate are 2048 -> 8192, w_out 8192 -> 2048.
+        ("piece GEMM zamba2 prefill 682x2048x8192", (682, 2048), 8192, f32,
+         False),
+        ("piece GEMM zamba2 prefill 682x8192x2048", (682, 8192), 2048, f32,
+         False),
+        ("piece GEMM zamba2 prefill T=200 133x2048x8192", (133, 2048), 8192,
+         f32, False),
+        ("piece GEMM zamba2 decode 1x2048x8192", (1, 2048), 8192, f32, False),
+        ("piece GEMM zamba2 decode 1x8192x2048", (1, 8192), 2048, f32, False),
+        ("encode zamba2 prefill (10,6)@(6,682*2048)", G106, 682 * 2048, f32,
+         False),
+        ("encode zamba2 prefill w_out (10,6)@(6,682*8192)", G106, 682 * 8192,
+         f32, False),
+        ("decode zamba2 prefill (6,6)@(6,682*8192)", D66, 682 * 8192, f32,
+         False),
+        ("encode zamba2 decode (10,6)@(6,2048)", G106, 2048, f32, False),
         # the headline shape once more, last: two readings show the spread
         ("encode conv2_2 B=1 (again)", G106, 291840, f32, False),
     ]
@@ -319,11 +351,168 @@ def check_conv(torch, timer, gen, name, xs, sl, ws, stride, dtype,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def ssd_cases(torch):
+    """(name, B, T, H, P, N, chunk, h0, dtype, entry, headline); entry
+    "scan" is one launch for the whole sequence (``ssd_chunk_scan``, what
+    ``models.ssm.ssd_chunked`` calls), "chunk" the Pallas signature."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    z = (64, 64, 64)  # Zamba2-1.2B: H = 2 * 2048 / 64, P = 64, N = 64
+    return [
+        ("zamba2 prefill B=8 T=512", 8, 512, *z, 128, False, f32, "scan",
+         True),
+        ("zamba2 prefill B=8 T=512, h0", 8, 512, *z, 128, True, f32, "scan",
+         False),
+        ("zamba2 prefill B=1 T=512", 1, 512, *z, 128, False, f32, "scan",
+         False),
+        ("zamba2 prefill B=4 T=200 (ragged chunk)", 4, 200, *z, 128, False,
+         f32, "scan", False),
+        # Mamba2-2.7B: H = 2 * 2560 / 64 = 80, N = 128
+        ("mamba2-2.7b heads B=2 T=512", 2, 512, 80, 64, 128, 128, False, f32,
+         "scan", False),
+        ("zamba2 prefill B=8 T=512 bf16 x", 8, 512, *z, 128, False, bf16,
+         "scan", False),
+        ("one chunk L=128, h0", 8, 128, *z, 128, True, f32, "chunk", False),
+        ("one chunk L=72, h0", 2, 72, *z, 72, True, f32, "chunk", False),
+    ]
+
+
+def ssd_inputs(torch, gen, B, T, H, P, N, h0, dtype):
+    """Inputs distributed as a Mamba2 layer makes them: x, Bm, Cm ~ N(0, 1)
+    (post-conv activations), dt = softplus(N(0, 1) + dt_bias) with the
+    init's dt_bias, A = -linspace(1, 16, H) (the init's A_log)."""
+    import torch.nn.functional as F
+
+    x = _rand(torch, gen, (B, T, H, P), dtype)
+    raw = torch.randn((B, T, H), generator=gen, device="cuda")
+    dt = F.softplus(raw + math.log(math.expm1(1e-2)))
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm = _rand(torch, gen, (B, T, N), dtype)
+    Cm = _rand(torch, gen, (B, T, N), dtype)
+    h = _rand(torch, gen, (B, H, P, N), torch.float32) if h0 else None
+    return x, dt, A, Bm, Cm, h
+
+
+def ssd_f64_scan(torch, x, dt, A, Bm, Cm, h0):
+    """The sequential-scan oracle ``ssd_chunk_ref`` in f64, lane by lane."""
+    from repro_torch.kernels.ref import ssd_chunk_ref
+
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    ys, hs = [], []
+    for b in range(B):
+        h = (torch.zeros((H, P, N), dtype=torch.float64, device=x.device)
+             if h0 is None else h0[b].double())
+        y, h = ssd_chunk_ref(x[b].double(), dt[b].double(), A.double(),
+                             Bm[b].double(), Cm[b].double(), h)
+        ys.append(y)
+        hs.append(h)
+    return torch.stack(ys), torch.stack(hs)
+
+
+def ssd_work(B, T, H, P, N, chunk) -> float:
+    """FLOPs the chunked dual form needs: per (batch, chunk) the causal
+    half of C B^T once (shared by the heads), per head the causal half of
+    the weighted product with x, the incoming-state and the outgoing-state
+    products — over the rows the sequence has (a ragged last chunk counts
+    its own rows, not the padding)."""
+    macs = 0
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+        tri = n * (n + 1) // 2
+        macs += tri * N + H * (tri * P + 2 * n * N * P)
+    return 2.0 * B * macs
+
+
+def ssd_compare(torch, name, inputs, chunk, refs: dict, got) -> tuple:
+    """Hold an SSD result ``got = (y, h)`` against each reference in
+    ``refs`` and fail beyond tolerance.  Returns (errors, err/tol ratios,
+    y's tolerance coefficient, max |cum dA|).
+
+    Tolerance: every term of y and of the state is a product of magnitudes
+    summed over N (C.B), the chunk (s <= l) and, for the incoming state, N
+    again; the same function of |x|, |Bm|, |Cm|, |h0| bounds the sum of
+    magnitudes.  f32 sums of that length differ by a few (N + L) u of it,
+    and exp(cum_l - cum_s) by |cum| u, where |cum| is the largest running
+    sum of dA inside a chunk; a bf16 y adds one rounding (2^-8) per side.
+    """
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan_plain
+
+    x, dt, A, Bm, Cm, h = inputs
+    B, T, H, _ = x.shape
+    N = Bm.shape[-1]
+    absh = h.abs() if h is not None else None
+    Sy, Sh = ssd_chunk_scan_plain(x.abs(), dt, A, Bm.abs(), Cm.abs(), absh,
+                                  chunk)
+    c = -(-T // chunk)
+    dA = torch.nn.functional.pad(dt * A, (0, 0, 0, c * chunk - T))
+    max_cum = float(dA.reshape(B, c, chunk, H).cumsum(2).abs().max())
+    coef = 4.0 * (N + chunk + max_cum) * 2.0 ** -24
+    coef_y = coef + (2.0 ** -7 if x.dtype == torch.bfloat16 else 0.0)
+    errs, ratios = {}, {}
+    for ref_name, (ry, rh) in refs.items():
+        for part, a, b, S, k in (("y", got[0], ry, Sy, coef_y),
+                                 ("h", got[1], rh, Sh, coef)):
+            key = f"{part} vs {ref_name}"
+            e = (a.double() - b.double()).abs()
+            errs[key] = e
+            ratios[key] = float((e / (k * S.double() + 1e-30)).max())
+            require(ratios[key] <= 1.0, f"{name}: {key} err/tol = "
+                                        f"{ratios[key]:.3g}")
+    return errs, ratios, coef_y, max_cum
+
+
+def check_ssd(torch, timer, gen, name, B, T, H, P, N, chunk, h0, dtype,
+              entry, headline) -> dict:
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk, ssd_chunk_scan,
+                                               ssd_chunk_scan_plain)
+
+    x, dt, A, Bm, Cm, h = ssd_inputs(torch, gen, B, T, H, P, N, h0, dtype)
+    if entry == "chunk":
+        require(T == chunk, f"{name}: one chunk means T == chunk")
+        h = h if h is not None else torch.zeros((B, H, P, N), device="cuda")
+        run = lambda: ssd_chunk(x, dt, A, Bm, Cm, h)
+    else:
+        run = lambda: ssd_chunk_scan(x, dt, A, Bm, Cm, h, chunk)
+    plain = lambda: ssd_chunk_scan_plain(x, dt, A, Bm, Cm, h, chunk)
+    y, hT = run()
+    torch.cuda.synchronize()
+    py, ph = plain()
+    require(tuple(y.shape) == (B, T, H, P) and y.dtype == dtype
+            and tuple(hT.shape) == (B, H, P, N) and hT.dtype == torch.float32,
+            f"{name}: shapes/dtypes")
+    require(bool(torch.isfinite(y.float()).all())
+            and bool(torch.isfinite(hT).all()), f"{name}: non-finite")
+    fy, fh = ssd_f64_scan(torch, x, dt, A, Bm, Cm, h)
+    errs, ratios, coef_y, max_cum = ssd_compare(
+        torch, name, (x, dt, A, Bm, Cm, h), chunk,
+        {"plain": (py, ph), "f64 scan": (fy, fh)}, (y, hT))
+    flops = ssd_work(B, T, H, P, N, chunk)
+    item = x.element_size()
+    n_bytes = ((x.numel() + Bm.numel() + Cm.numel() + y.numel()) * item
+               + (dt.numel() + A.numel() + hT.numel()
+                  + (h.numel() if h is not None else 0)) * 4)
+    dn = str(dtype).replace("torch.", "")
+    # the kernel computes in f32 whatever x's type: bound by the f32 rate
+    bound_ms, bound_by = bound(n_bytes, flops, "float32")
+    return {"case": name, "kernel": "ssd_chunk",
+            "shape": {"B": B, "T": T, "H": H, "P": P, "N": N, "chunk": chunk,
+                      "h0": h0, "entry": entry},
+            "dtype": dn, "headline": headline,
+            "max_abs_err": float(errs["y vs plain"].max()),
+            "errors": {k: float(e.max()) for k, e in errs.items()},
+            "err_over_tol": max(ratios.values()), "ratios": ratios,
+            "tol_coef": coef_y, "max_cum": max_cum,
+            "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
+            "ms": timer.ms(run), "plain_ms": timer.ms(plain),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def phase_kernels(torch) -> list[dict]:
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [check_gemm(torch, timer, gen, *c) for c in gemm_cases(torch)]
     cases += [check_conv(torch, timer, gen, *c) for c in conv_cases(torch)]
+    cases += [check_ssd(torch, timer, gen, *c) for c in ssd_cases(torch)]
     emit({"phase": "kernels", "timing": "median of 15 calls, CUDA events, "
           "L2 overwritten before each call, TF32 off", "cases": cases})
     return cases
@@ -446,6 +635,17 @@ def device_time_of(prof) -> dict:
                          for t, k, c in host[:6]]}
 
 
+def t_compute_stats(values: list[float]) -> dict:
+    """Median, p90, max and sum in ms of real-clock piece compute times
+    (each from the piece's launch to its own stream's synchronise)."""
+    v = sorted(values)
+    if not v:
+        return {"pieces": 0}
+    return {"pieces": len(v), "median": v[len(v) // 2] * 1e3,
+            "p90": v[int(0.9 * (len(v) - 1))] * 1e3, "max": v[-1] * 1e3,
+            "sum": sum(v) * 1e3}
+
+
 def phase_vgg16(torch) -> dict:
     from repro_torch.core import SystemParams, compile_plan
     from repro_torch.core.coded_conv import boundary_op_counter
@@ -496,12 +696,15 @@ def phase_vgg16(torch) -> dict:
                 prof.__enter__()
             except Exception as e:  # a measurement aid, not a check
                 prof, prof_out = None, f"profiler unavailable: {e!r}"
+        reports = []
+        ex.on_report = reports.append
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with boundary_op_counter() as ops:
             logits = vgg16_forward(params, xb, plan=plan, executor=ex)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        ex.on_report = None
         if prof is not None:
             prof.__exit__(None, None, None)
             try:
@@ -548,6 +751,8 @@ def phase_vgg16(torch) -> dict:
                              "subset": rep.subset,
                              "redispatched": rep.redispatched,
                              "failures": rep.failures},
+            "piece_t_compute_ms": None if exact_counts else t_compute_stats(
+                [t.t_compute for r in reports for t in r.timings]),
             "profile": prof_out})
 
     ex = make_executor(FakeClock())
@@ -566,6 +771,7 @@ def phase_vgg16(torch) -> dict:
     ex = make_executor(RealClock())
     try:
         serve(ex, batches[1], "real clock, batch 1", exact_counts=False)
+        serve(ex, batches[1], "real clock, batch 1, warm", exact_counts=False)
     finally:
         ex.close()
     torch.cuda.synchronize()
@@ -588,6 +794,252 @@ def phase_vgg16(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the second path — Zamba2-1.2B served on the worker pool
+# ---------------------------------------------------------------------------
+
+ZAMBA2_BUCKETS = ((8, 512, 16), (4, 200, 16))  # requests, prompt, new tokens
+ZAMBA2_K = 6
+
+
+def zamba2_expected(cfg, n_live: int) -> dict:
+    """Launches and coded runs the design implies for the two buckets.
+
+    SSD: one ``ssd_chunk_scan`` launch per Mamba2 layer per prefill (the
+    chunk loop runs inside the kernel); decode steps run the recurrence in
+    plain torch.  Coded GEMMs: each of the shared block's calls runs 3 FFN
+    GEMMs, coded when the step has >= k tokens (a B=4 decode step has 4 <
+    6: master-local); each coded run launches the skinny GEMM for the
+    encode, for each live worker's piece (on the virtual clock every live
+    worker computes its piece, the straggler too) and for the decode.
+    """
+    shared = sum(cfg.has_shared_attn(i) for i in range(cfg.n_layers))
+    runs = 0
+    for n_req, T, new in ZAMBA2_BUCKETS:
+        steps = int(n_req * T >= ZAMBA2_K) + (new - 1) * int(n_req >= ZAMBA2_K)
+        runs += 3 * shared * steps
+    return {"coded_runs": runs, "ssd_chunk": cfg.n_layers * len(ZAMBA2_BUCKETS),
+            "skinny_gemm": runs * (1 + n_live + 1)}
+
+
+def phase_zamba2(torch) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.dist import FakeClock
+    from repro_torch.kernels.skinny_gemm import skinny_gemm
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_scan_plain
+    from repro_torch.models import model as M
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.ssm import (_causal_conv, _split_in_proj,
+                                        ssd_chunked)
+    from repro_torch.serving import Engine, Request
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), dtype=torch.float32)
+    dims = cfg.ssm_dims
+    require((cfg.n_layers, cfg.d_model, dims.n_heads) == (38, 2048, 64),
+            "zamba2-1.2b at full width")
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 3))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(SEED + 4)
+    reqs, buckets = [], []
+    for n_req, T, new in ZAMBA2_BUCKETS:
+        ids = list(range(len(reqs), len(reqs) + n_req))
+        reqs += [Request(i, rng.integers(0, cfg.vocab, T, dtype=np.int32),
+                         max_new=new) for i in ids]
+        buckets.append((ids, T, new))
+    n_tokens = sum(r.max_new for r in reqs)
+
+    ex = make_executor(FakeClock())
+    live = N_WORKERS - len(ex.pool.fault_plan.dead)
+    want_counts = zamba2_expected(cfg, live)
+    try:
+        eng = Engine(cfg, params, coded=(N_WORKERS, ZAMBA2_K), executor=ex)
+        # the counted run's per-step logits, recorded as the engine makes
+        # them (the check below holds them against the uncoded model)
+        steps = []
+
+        def recording(fn):
+            def wrapped(*args):
+                logits, cache = fn(*args)
+                steps.append(logits[:, 0, : cfg.vocab])
+                return logits, cache
+            return wrapped
+
+        eng._prefill, eng._decode = (recording(eng._prefill),
+                                     recording(eng._decode))
+        reports = []
+        ex.on_report = reports.append
+        torch.cuda.synchronize()
+
+        # ---- the counted run starts here ----------------------------------
+        skinny_gemm.launches = 0
+        ssd_chunk.launches = 0
+        t0 = time.perf_counter()
+        out = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {"skinny_gemm": skinny_gemm.launches,
+                  "ssd_chunk": ssd_chunk.launches}
+        # ---- the counted run ends here ------------------------------------
+        ex.on_report = None
+        eng._bind_steps()
+        runs, dispatches = ex.run_count, ex.pool.dispatch_count
+        require(counts["ssd_chunk"] > 0 and counts["skinny_gemm"] > 0,
+                f"a kernel of the path was never launched: {counts}")
+        require(counts["ssd_chunk"] == want_counts["ssd_chunk"],
+                f"{counts['ssd_chunk']} SSD launches, the design implies "
+                f"{want_counts['ssd_chunk']}")
+        require(counts["skinny_gemm"] == want_counts["skinny_gemm"],
+                f"{counts['skinny_gemm']} skinny-GEMM launches, the design "
+                f"implies {want_counts['skinny_gemm']}")
+        require(runs == len(reports) == want_counts["coded_runs"],
+                f"{runs} coded runs ({len(reports)} reports), the design "
+                f"implies {want_counts['coded_runs']}")
+        for r in reports:
+            require(r.t_complete == 1.0 and 1 not in r.subset
+                    and 2 not in r.subset,
+                    f"a coded run waited or used a faulty worker: "
+                    f"t_complete {r.t_complete}, subset {r.subset}")
+
+        # ---- the profiled run: the same requests --------------------------
+        from torch.profiler import ProfilerActivity, profile as tprof
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            again = eng.generate(reqs)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        profile = device_time_of(prof)
+        profile["wall_ms"] = prof_wall_ms
+        profile["idle_share"] = max(0.0, 1.0 - profile["device_ms"]
+                                    / prof_wall_ms)
+        require(all(np.array_equal(a.tokens, b.tokens)
+                    for a, b in zip(out, again)),
+                "two coded runs of the same requests gave other tokens")
+    finally:
+        ex.close()
+
+    # ---- coded vs uncoded, teacher-forced on the coded tokens ------------
+    by_id = {c.rid: c for c in out}
+    worst, near_ties, checked, i = 0.0, 0, 0, 0
+    for ids, T, new in buckets:
+        toks = torch.as_tensor(np.stack([reqs[j].prompt for j in ids]),
+                               device="cuda")
+        gen = np.stack([by_id[j].tokens for j in ids])  # (b, new)
+        logits, cache = M.prefill(cfg, params, toks, max_seq=T + new)
+        for s in range(new):
+            if s:
+                nxt = torch.as_tensor(gen[:, s - 1: s], device="cuda")
+                logits, cache = M.decode_step(cfg, params, cache, token=nxt)
+            ref = logits[:, 0, : cfg.vocab]
+            got = steps[i]
+            i += 1
+            tol = 1e-3 * float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            require(err <= tol, f"zamba2 bucket T={T} step {s}: coded "
+                                f"logits differ by {err} > {tol}")
+            worst = max(worst, err / tol)
+            require(bool((got.argmax(-1).cpu().numpy() == gen[:, s]).all()),
+                    "served tokens are not the argmax of their logits")
+            top2 = ref.topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            agree = ref.argmax(-1).cpu().numpy() == gen[:, s]
+            require(bool(agree[margin > tol].all()),
+                    f"zamba2 bucket T={T} step {s}: a token differs from "
+                    "the uncoded one outside a near-tie")
+            near_ties += int((margin <= tol).sum())
+            checked += int((margin > tol).sum())
+    require(i == len(steps), f"{len(steps)} recorded steps, {i} checked")
+
+    # ---- one prefill layer's SSD: the kernel and the plain chunk function
+    x = params["embed"][torch.as_tensor(
+        np.stack([reqs[j].prompt for j in buckets[0][0]]), device="cuda")]
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype, device="cuda")
+    mp = params["layers"][0]["mamba"]
+    _, xbc, dt_raw = _split_in_proj(
+        rms_norm(x, params["layers"][0]["norm"]) @ mp["in_proj"], dims)
+    xbc = F.silu(_causal_conv(xbc, mp["conv_w"], mp["conv_b"]))
+    di, N = dims.d_inner, dims.d_state
+    xs = xbc[..., :di].reshape(x.shape[0], x.shape[1], dims.n_heads,
+                               dims.head_dim)
+    Bm, Cm = xbc[..., di: di + N], xbc[..., di + N:]
+    dt = F.softplus(dt_raw.float() + mp["dt_bias"])
+    A = -torch.exp(mp["A_log"])
+    n0 = ssd_chunk.launches
+    yk, hk = ssd_chunked(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    torch.cuda.synchronize()
+    require(ssd_chunk.launches == n0 + 1, "ssd_chunked did not launch "
+                                          "the kernel once")
+    yp, hp = ssd_chunk_scan_plain(xs, dt, A, Bm, Cm, None, cfg.ssm_chunk)
+    errs, ratios, _, max_cum = ssd_compare(
+        torch, "zamba2 layer 0 SSD", (xs, dt, A, Bm, Cm, None),
+        cfg.ssm_chunk, {"plain": (yp, hp)}, (yk, hk))
+
+    def event_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[reps // 2]
+
+    layer_ssd = {
+        "shape": list(xs.shape), "N": N, "chunk": cfg.ssm_chunk,
+        "max_cum": max_cum,
+        "kernel_ms": event_ms(lambda: ssd_chunked(xs, dt, A, Bm, Cm,
+                                                  chunk=cfg.ssm_chunk)),
+        "plain_ms": event_ms(lambda: ssd_chunk_scan_plain(
+            xs, dt, A, Bm, Cm, None, cfg.ssm_chunk)),
+        "max_abs_diff": {k: float(e.max()) for k, e in errs.items()},
+        "err_over_tol": ratios,
+        "max_abs_y": float(yp.abs().max())}
+
+    ttft, own, per_tok, prev_end = {}, {}, {}, 0.0
+    for ids, T, new in buckets:
+        first = max(by_id[j].first_token_s for j in ids)
+        last = max(by_id[j].latency_s for j in ids)
+        ttft[T] = first * 1e3
+        own[T] = (first - prev_end) * 1e3
+        per_tok[T] = (last - first) / max(new - 1, 1) * 1e3
+        prev_end = last
+    emit({"phase": "zamba2",
+          "model": "zamba2-1.2b, 38 Mamba2 layers, d_model 2048, 64 SSD "
+                   "heads, shared attention+FFN after 6 of them, f32, "
+                   "seeded random weights",
+          "params": M.param_count(params), "init_s": init_s,
+          "coded": {"scheme": "mds", "n": N_WORKERS, "k": ZAMBA2_K,
+                    "workers": N_WORKERS,
+                    "faults": "dead={1}, straggler={2: 50x}",
+                    "clock": "FakeClock + DeterministicDelay(1.0)"},
+          "buckets": [{"requests": len(ids), "prompt": T, "max_new": new}
+                      for ids, T, new in buckets],
+          "reference": "same weights, uncoded Engine model functions, "
+                       "teacher-forced on the served tokens",
+          "wall_s": wall_s, "tokens": n_tokens,
+          "tokens_per_s": n_tokens / wall_s,
+          "ttft_ms": ttft, "ttft_own_bucket_ms": own,
+          "decode_ms_per_token": per_tok,
+          "coded_runs": runs, "dispatches": dispatches,
+          "launches": counts, "launches_expected": want_counts,
+          "t_complete": sorted({r.t_complete for r in reports}),
+          "steps_checked": len(steps), "tokens_checked": checked,
+          "near_ties": near_ties, "worst_logit_err_over_tol": worst,
+          "layer0_ssd": layer_ssd, "profile": profile})
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_META = {
     "skinny_gemm": {
@@ -598,16 +1050,25 @@ KERNEL_META = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/conv2d.cu",
         "replaces": "src/repro/kernels/conv2d.py:67"},
+    "ssd_chunk": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:66"},
 }
 
 
-def kernels_line(cases: list[dict], counts: dict) -> dict:
+def kernels_line(cases: list[dict], by_path: dict) -> dict:
+    """One entry per kernel: ``launches`` sums the main paths' counted runs
+    (``launches_by_path`` splits them), the numbers are the headline case's,
+    ``max_abs_err`` the worst over its cases in the headline's type."""
     out = []
     for name, meta in KERNEL_META.items():
         mine = [c for c in cases if c["kernel"] == name]
         head = next(c for c in mine if c["headline"])
+        paths = {p: n[name] for p, n in by_path.items() if name in n}
         out.append({
-            "name": name, **meta, "launches": counts[name],
+            "name": name, **meta, "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "shape": head["case"], "dtype": head["dtype"],
             "max_abs_err": max(c["max_abs_err"] for c in mine
                                if c["dtype"] == head["dtype"]),
@@ -646,12 +1107,16 @@ def main() -> int:
     cases = phase_kernels(torch) if "kernels" in phases else None
     if "coded_ops" in phases:
         phase_coded_ops(torch)
-    counts = phase_vgg16(torch) if "vgg16" in phases else None
+    by_path = {}
+    if "vgg16" in phases:
+        by_path["vgg16"] = phase_vgg16(torch)
+    if "zamba2" in phases:
+        by_path["zamba2"] = phase_zamba2(torch)
 
     if set(phases) != set(ALL_PHASES):
         print(f"partial run ({phases}): no result line", file=sys.stderr)
         return 0
-    emit(kernels_line(cases, counts))
+    emit(kernels_line(cases, by_path))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1)})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -340,13 +340,15 @@ class LTCode:
 
     @staticmethod
     def decode_from(rows: np.ndarray, coded: torch.Tensor) -> torch.Tensor:
-        """Least-squares solve (== Gaussian elimination when rank is full).
+        """Minimum-norm least-squares solve (== Gaussian elimination when
+        rank is full), as ``jnp.linalg.lstsq`` returns it.
 
-        ``torch.linalg.lstsq`` on CUDA offers only the ``gels`` solver, which
-        assumes full column rank — exactly the rows for which
-        :meth:`decodable` holds, the only ones callers may pass.  f32/f64
-        only (LAPACK has no bf16); :class:`LTScheme` does not come this way,
-        it applies a cached pseudo-inverse through the skinny GEMM.
+        The pseudo-inverse of the 0/1 ``rows`` is taken on the host in f64
+        and applied on ``coded``'s device, so a rank-deficient ``rows``
+        gets the minimum-norm solution on every device (``torch.linalg.
+        lstsq`` on CUDA has only the full-rank ``gels`` solver).  f32/f64
+        ``coded``; :class:`LTScheme` does not come this way, it applies a
+        cached pseudo-inverse through the skinny GEMM.
         """
-        E = torch.from_numpy(np.array(rows)).to(coded.dtype).to(coded.device)
-        return torch.linalg.lstsq(E, coded).solution
+        D = np.linalg.pinv(np.asarray(rows, dtype=np.float64))
+        return torch.from_numpy(D).to(coded.dtype).to(coded.device) @ coded

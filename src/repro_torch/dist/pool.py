@@ -86,11 +86,60 @@ def _wait_for_device(result: Any) -> None:
     are queued.  A piece has only *arrived* when its values exist, so the
     worker synchronises the stream the piece ran on (this thread's current
     stream on the result's device) before it takes the elapsed time and
-    posts the arrival.  Worker threads share PyTorch's default stream, so
-    this also waits for whatever other pieces queued on it earlier.
+    posts the arrival.  This is the wait of a run submitted before the
+    process touched CUDA; otherwise :func:`_run_piece` synchronises the
+    worker's own stream, which holds this piece's kernels and no other
+    worker's.
     """
     if isinstance(result, torch.Tensor) and result.is_cuda:
         torch.cuda.current_stream(result.device).synchronize()
+
+
+def _cuda_handoff() -> tuple | None:
+    """``(master stream, event)`` for a run submitted from this thread, or
+    None when the process has not touched CUDA (then no piece input can
+    live on a card).  The event is recorded on the master's current stream
+    after everything the master queued for the run (encode, slicing), so a
+    worker that waits on it sees the pieces' inputs and nothing later."""
+    if not torch.cuda.is_initialized():
+        return None
+    master = torch.cuda.current_stream()
+    ready = torch.cuda.Event()
+    ready.record(master)
+    return master, ready
+
+
+def _run_piece(fn: Callable[[], Any], handoff: tuple | None,
+               stream: "torch.cuda.Stream | None"):
+    """Run one piece on the worker's own CUDA stream and wait for it.
+
+    Returns ``(result, stream)``; the worker keeps the stream (made at its
+    first CUDA piece) for the pool's lifetime, so its caching-allocator
+    pool stays warm from run to run.  The stream first waits for the
+    master's ``ready`` event (the inputs exist), the piece launches on it,
+    and the worker synchronises that stream alone — never the device, never
+    another worker's stream.  A CUDA result is marked as used on the
+    master's stream (``record_stream``), which consumes it, so its memory
+    is not handed back to this worker's stream before the master's reads
+    are done.  Without CUDA the piece runs as it is.  (Inputs are the
+    master's: a real-clock straggler still computing when the master has
+    decoded and freed them may read reused memory — its result is dropped
+    unread.)
+    """
+    if handoff is None:
+        result = fn()
+        _wait_for_device(result)
+        return result, stream
+    master, ready = handoff
+    if stream is None or stream.device != master.device:
+        stream = torch.cuda.Stream(device=master.device)
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        result = fn()
+        stream.synchronize()
+    if isinstance(result, torch.Tensor) and result.is_cuda:
+        result.record_stream(master)
+    return result, stream
 
 
 class Undecodable(RuntimeError):
@@ -174,6 +223,8 @@ class _RunCtx:
     t0_wall: float   # wall origin of the run's GROUP (shared across a group)
     start_at: float  # virtual gate: no piece of this run starts earlier
     post: Callable[["_Event"], None]
+    # (master stream, ready event) from _cuda_handoff(), None without CUDA
+    handoff: tuple | None = None
 
 
 @dataclasses.dataclass
@@ -529,6 +580,7 @@ class WorkerPool:
     # -- worker side -------------------------------------------------------
     def _worker_loop(self, w: int) -> None:
         group, t_free = -1, 0.0
+        stream = None  # this worker's own CUDA stream (_run_piece)
         # per-run progress within the current group: epoch -> [done, failed]
         runs: dict[int, list] = {}
         while True:
@@ -576,8 +628,8 @@ class WorkerPool:
                 continue
             try:
                 t0 = time.perf_counter()
-                result = piece.fn()  # the real subtask compute
-                _wait_for_device(result)
+                # the real subtask compute, on this worker's own stream
+                result, stream = _run_piece(piece.fn, ctx.handoff, stream)
                 elapsed = time.perf_counter() - t0
             except Exception as e:  # master re-raises
                 ctx.post(_Event("error", ctx.epoch, w, piece.idx, t_free,
@@ -695,6 +747,7 @@ class WorkerPool:
             i: fn for i, fn in enumerate(pieces)}
         wall0 = time.perf_counter()
         events: queue.Queue[_Event] = queue.Queue()
+        handoff = _cuda_handoff()  # on the caller's (master's) stream
         with self._submit_lock:
             if self._group_pin == 0 and self._active == 0:
                 self._group += 1  # fresh timeline for an unpinned lone run
@@ -729,7 +782,8 @@ class WorkerPool:
             self._active += 1
             ctx = _RunCtx(self._epoch, self._group, threading.Event(),
                           faults, delay, self.clock, self.time_scale,
-                          self._group_t0_wall, float(start_at), events.put)
+                          self._group_t0_wall, float(start_at), events.put,
+                          handoff)
             # master state.  Receipt-time state (pending / arrived / last_t)
             # is OS-scheduling dependent and is used ONLY for the safe-merge
             # bound and liveness; every decision that shapes the run (decode

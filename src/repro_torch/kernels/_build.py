@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "find_nvcc", "build_all",
            "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("skinny_gemm", "conv2d")
+SOURCES = ("skinny_gemm", "conv2d", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600.0

@@ -2,9 +2,9 @@
 
 Each wrapper launches its kernel for a CUDA tensor and computes the plain
 PyTorch version (ref.py) for a CPU tensor; nothing else selects between the
-two.  tests/test_torch_kernels.py holds the plain versions to the JAX
-reference; chip_smoke.py holds the kernels to the plain versions on the
-card.
+two.  tests/test_torch_kernels.py and tests/test_torch_ssd.py hold the
+plain versions to the JAX reference; chip_smoke.py holds the kernels to the
+plain versions on the card.
 """
 from __future__ import annotations
 
@@ -13,8 +13,10 @@ import torch
 from .conv2d import conv2d
 from .mds_decode import mds_decode_cuda
 from .mds_encode import mds_encode_cuda
+from .ssd_chunk import ssd_chunk, ssd_chunk_scan  # one SSD chunk / a sequence
 
-__all__ = ["mds_encode", "mds_decode", "conv2d_subtask"]
+__all__ = ["mds_encode", "mds_decode", "conv2d_subtask", "ssd_chunk",
+           "ssd_chunk_scan"]
 
 
 def mds_encode(G: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

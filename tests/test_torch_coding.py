@@ -223,6 +223,22 @@ def test_lt_code_lstsq_matches_reference():
     assert_scaled_close(got, want, scale, 64 * U32, "lstsq vs ref")
 
 
+def test_lt_decode_is_minimum_norm_on_rank_deficient_rows():
+    """rows of rank 3 < k = 4: jnp.linalg.lstsq returns the minimum-norm
+    solution, and so must the port on every device (no full-rank solver)."""
+    rows = np.array([[1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 0],
+                     [1, 1, 0, 0], [0, 0, 0, 0]], dtype=np.float64)
+    assert np.linalg.matrix_rank(rows) == 3
+    assert not tcoding.LTCode.decodable(rows, 4)
+    coded = np.random.default_rng(3).normal(size=(5, 11)).astype(np.float32)
+    got = tcoding.LTCode.decode_from(rows, to_t(coded))
+    want = jcoding.LTCode.decode_from(rows, to_j(coded))
+    scale = np.abs(np.linalg.pinv(rows)) @ np.abs(coded)
+    assert_scaled_close(got, want, scale + 1e-6, 64 * U32, "min-norm vs ref")
+    # minimum norm: no component in the null space (the 4th source)
+    assert float(np.abs(as_np(got)[3]).max()) < 1e-5
+
+
 def test_resolve_subset_and_source_of_piece_match_reference():
     for name in NAMES:
         t, j = make_scheme(tschemes, name, 6, 3), make_scheme(jschemes, name, 6, 3)

@@ -302,3 +302,16 @@ def test_arrival_waits_for_the_device():
     _wait_for_device(torch.ones(2))
     _wait_for_device(3.0)
     _wait_for_device(None)
+
+
+def test_pieces_run_as_they_are_without_cuda():
+    """The per-worker stream hand-off exists only once the process has
+    touched CUDA; before that a piece runs as it is, and the worker keeps
+    no stream."""
+    from repro_torch.dist.pool import _cuda_handoff, _run_piece
+
+    if torch.cuda.is_initialized():
+        pytest.skip("this check is about a process that never touched CUDA")
+    assert _cuda_handoff() is None
+    result, stream = _run_piece(lambda: torch.ones(3), None, None)
+    assert torch.equal(result, torch.ones(3)) and stream is None

@@ -44,10 +44,14 @@ def test_port_files_are_found():
                  "src/repro_torch/kernels/conv2d.py",
                  "src/repro_torch/core/coded_conv.py",
                  "src/repro_torch/dist/executor.py",
-                 "src/repro_torch/models/cnn.py", "chip_smoke.py"):
+                 "src/repro_torch/models/cnn.py", "chip_smoke.py",
+                 "src/repro_torch/kernels/ssd_chunk.py",
+                 "src/repro_torch/models/model.py",
+                 "src/repro_torch/serving/engine.py"):
         assert must in names
     assert (PORT / "kernels" / "csrc" / "skinny_gemm.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "conv2d.cu").is_file()
+    assert (PORT / "kernels" / "csrc" / "ssd_chunk.cu").is_file()
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -102,9 +106,12 @@ def test_default_device_raises_without_cuda():
     import numpy as np
 
     from repro_torch import convert, resolve_device
-    from repro_torch.models import cnn
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import cnn, model
+    from repro_torch.serving import Engine
 
     gen = torch.Generator().manual_seed(0)
+    zamba = smoke_config("zamba2-1.2b")
     for call in (lambda: cnn.init_small_cnn(gen),
                  lambda: cnn.init_vgg16(gen),
                  lambda: cnn.init_resnet18(gen),
@@ -112,6 +119,11 @@ def test_default_device_raises_without_cuda():
                  lambda: convert.cnn_params_from_numpy(
                      {"convs": [np.zeros((1, 1, 3, 3))],
                       "head": np.zeros((1, 1))}),
+                 lambda: model.init_params(zamba, gen),
+                 lambda: model.init_cache(zamba, 1, 4),
+                 lambda: Engine(zamba),
+                 lambda: convert.model_params_from_numpy(
+                     {"layers": [], "embed": np.zeros((2, 2))}),
                  lambda: resolve_device()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
