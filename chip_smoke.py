@@ -12,13 +12,20 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    versions, kernel build seconds.
 2. ``kernels``   — every ported kernel against its plain PyTorch version on
                    the card, at the shapes the VGG16 and Zamba2 paths give
-                   it and at the edge shapes (ragged F, C_O = 7, K in
-                   {1, 5, 7}, stride 2, width slices, a ragged SSD chunk,
+                   it (every VGG16 piece at B = 1 and 4, remainders, local
+                   layers; every Zamba2 piece GEMM) and at the edge shapes
+                   (the GEMV regime at t_p 1-16 and its edge t_p = 17, a
+                   ragged contraction, ragged and unaligned F, C_O = 7, K
+                   in {1, 5, 7}, stride 2, width slices, a ragged SSD chunk,
                    Mamba2-2.7B's SSD heads, bf16), with times, bounds and
                    the library yardstick (``torch.matmul`` / ``F.conv2d``,
                    TF32 off — timed here, never called by the port; the SSD
-                   chunk has none).  The SSD cases are also held against an
-                   f64 sequential scan.
+                   chunk has none).  Every case is also held against an f64
+                   product (the SSD: an f64 sequential scan).  Bit for bit:
+                   a column block of every GEMM and a row block of every
+                   tiled GEMM equal the same part of the whole, a split-K
+                   GEMM or conv run twice is the same, and 10 conv pieces
+                   stacked into one launch equal the 10 launches of one.
 3. ``coded_ops`` — ``coded_conv2d`` and ``coded_matmul`` through a
                    ``CodedExecutor`` with one dead worker and one straggler,
                    against the uncoded result.
@@ -46,7 +53,10 @@ that does not build or launch, or any failed check ends the run with a
 non-zero exit code and no result line.
 
 ``--phases kernels,zamba2`` runs a subset (for debugging; the result line is
-only printed when every phase ran).
+only printed when every phase ran).  ``--time-kernels CHECKOUT`` only times
+the skinny GEMM and the conv of the port in another checkout (a parent
+commit unpacked beside this one) at this script's f32 cases, so that two
+versions can be held against each other in one run on one card.
 """
 from __future__ import annotations
 
@@ -181,7 +191,8 @@ def _rand(torch, gen, shape, dtype, scale=1.0):
 
 
 def gemm_cases(torch):
-    """(name, A as numpy f64 or None for random, (m, b, F), dtype, headline)."""
+    """(name, A as numpy f64 or (m, b) for random, F, dtype, headline[,
+    unaligned]): unaligned puts X 4 bytes past its allocation."""
     import numpy as np
     from repro_torch.core.coding import vandermonde_generator
 
@@ -215,8 +226,30 @@ def gemm_cases(torch):
          False),
         ("piece GEMM zamba2 prefill T=200 133x2048x8192", (133, 2048), 8192,
          f32, False),
+        ("piece GEMM zamba2 prefill T=200 w_out 133x8192x2048", (133, 8192),
+         2048, f32, False),
         ("piece GEMM zamba2 decode 1x2048x8192", (1, 2048), 8192, f32, False),
         ("piece GEMM zamba2 decode 1x8192x2048", (1, 8192), 2048, f32, False),
+        # the GEMV regime (t_p <= 16) at other t_p, its edge, a ragged
+        # contraction (no multiple of any split), ragged and unaligned F
+        # (X starts 4 bytes past an allocation), bf16
+        ("piece GEMV 2x2048x8192", (2, 2048), 8192, f32, False),
+        ("piece GEMV 6x2048x8192", (6, 2048), 8192, f32, False),
+        ("piece GEMV 16x2048x8192", (16, 2048), 8192, f32, False),
+        ("piece GEMV 2x8192x2048", (2, 8192), 2048, f32, False),
+        ("piece GEMV 6x8192x2048", (6, 8192), 2048, f32, False),
+        ("piece GEMV 16x8192x2048", (16, 8192), 2048, f32, False),
+        ("piece GEMM regime edge 17x8192x2048", (17, 8192), 2048, f32, False),
+        ("piece GEMV ragged b 1x8191x2048", (1, 8191), 2048, f32, False),
+        ("piece GEMM ragged b 133x8191x2048", (133, 8191), 2048, f32, False),
+        ("piece GEMV unaligned X 3x2048x8191", (3, 2048), 8191, f32, False,
+         True),
+        ("piece GEMM unaligned X 40x2048x4097", (40, 2048), 4097, f32, False,
+         True),
+        ("piece GEMV 1x8192x2048 bf16", (1, 8192), 2048, bf16, False),
+        ("piece GEMV unaligned X 6x2048x8191 bf16", (6, 2048), 8191, bf16,
+         False, True),
+        ("piece GEMM 133x2048x8192 bf16", (133, 2048), 8192, bf16, False),
         ("encode zamba2 prefill (10,6)@(6,682*2048)", G106, 682 * 2048, f32,
          False),
         ("encode zamba2 prefill w_out (10,6)@(6,682*8192)", G106, 682 * 8192,
@@ -229,8 +262,10 @@ def gemm_cases(torch):
     ]
 
 
-def check_gemm(torch, timer, gen, name, A_src, F, dtype, headline) -> dict:
-    from repro_torch.kernels.skinny_gemm import skinny_gemm, skinny_gemm_plain
+def check_gemm(torch, timer, gen, name, A_src, F, dtype, headline,
+               unaligned=False) -> dict:
+    from repro_torch.kernels.skinny_gemm import (piece_plan, skinny_gemm,
+                                                 skinny_gemm_plain)
 
     if isinstance(A_src, tuple):
         m, b = A_src
@@ -238,7 +273,13 @@ def check_gemm(torch, timer, gen, name, A_src, F, dtype, headline) -> dict:
     else:
         m, b = A_src.shape
         A = torch.from_numpy(A_src.copy()).to(dtype).cuda()
-    X = _rand(torch, gen, (b, F), dtype)
+    if unaligned:  # contiguous, but 4 bytes past a 16-byte boundary
+        buf = _rand(torch, gen, (b * F + 4,), dtype)
+        X = buf[4 // buf.element_size():][: b * F].view(b, F)
+        require(X.data_ptr() % 16 != 0, f"{name}: X is aligned")
+    else:
+        X = _rand(torch, gen, (b, F), dtype)
+    plan = piece_plan(m, b, F, dtype)
     got = skinny_gemm(A, X)
     torch.cuda.synchronize()
     want = skinny_gemm_plain(A, X)
@@ -266,12 +307,24 @@ def check_gemm(torch, timer, gen, name, A_src, F, dtype, headline) -> dict:
         part = skinny_gemm(A, X[:, c0:c1].contiguous())
         require(bool(torch.equal(part, got[:, c0:c1])),
                 f"{name}: a column block is not bit-identical to the whole")
+    # a contraction split is summed in a fixed order: run twice, same bits
+    if plan.cluster > 1:
+        require(bool(torch.equal(skinny_gemm(A, X), got)),
+                f"{name}: two runs of the split-K GEMV differ")
+    # tiled regime: a row block (still > 16 rows) has the rows' bits
+    if plan.regime == "tiled" and m >= 2 * 17:
+        r0, r1 = m // 4, m // 4 + max(17, m // 2)
+        rows = skinny_gemm(A[r0:r1].contiguous(), X)
+        require(bool(torch.equal(rows, got[r0:r1])),
+                f"{name}: a row block is not bit-identical to the whole")
     item = X.element_size()
     n_bytes = (m * b + b * F + m * F) * item
     dn = str(dtype).replace("torch.", "")
     bound_ms, bound_by = bound(n_bytes, 2.0 * m * b * F, dn)
     return {"case": name, "kernel": "skinny_gemm", "shape": [m, b, F],
-            "dtype": dn, "headline": headline,
+            "dtype": dn, "headline": headline, "unaligned": unaligned,
+            "plan": {"regime": plan.regime, "tile": list(plan.tile),
+                     "splits": plan.cluster, "blocks": plan.blocks},
             "max_abs_err": float(err.max()), "tol_coef": coef,
             "err_over_tol": ratio, "max_abs_err_vs_f64": float(err64.max()),
             "ms": timer.ms(lambda: skinny_gemm(A, X)),
@@ -284,17 +337,30 @@ def conv_cases(torch):
     """(name, x shape, slice of W or None, w shape, stride, dtype, headline)."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
-        # VGG16 (224, n=10, k=6) worker pieces, remainders and local layers
+        # VGG16 (224, n=10, k=6) worker pieces at B = 1 and 4, the remainder
+        # slices the master keeps (every segment has depth 1) and the local
+        # layers
         ("conv2_2 piece B=1", (1, 128, 114, 20), None, (128, 128, 3, 3), 1, f32, True),
         ("conv2_2 piece B=4", (4, 128, 114, 20), None, (128, 128, 3, 3), 1, f32, False),
         ("conv2_2 10 pieces folded", (10, 128, 114, 20), None, (128, 128, 3, 3), 1, f32, False),
         ("conv2_2 remainder slice", (1, 128, 114, 114), (108, 114), (128, 128, 3, 3), 1, f32, False),
+        ("conv3_1 piece B=1", (1, 128, 58, 11), None, (256, 128, 3, 3), 1, f32, False),
+        ("conv3_1 piece B=4", (4, 128, 58, 11), None, (256, 128, 3, 3), 1, f32, False),
         ("conv3_2 piece B=1", (1, 256, 58, 11), None, (256, 256, 3, 3), 1, f32, False),
+        ("conv3_2 piece B=4", (4, 256, 58, 11), None, (256, 256, 3, 3), 1, f32, False),
+        ("conv3_2 remainder slice", (1, 256, 58, 58), (54, 58), (256, 256, 3, 3), 1, f32, False),
+        ("conv4_1 piece B=1", (1, 256, 30, 6), None, (512, 256, 3, 3), 1, f32, False),
+        ("conv4_1 piece B=4", (4, 256, 30, 6), None, (512, 256, 3, 3), 1, f32, False),
         ("conv4_2 piece B=1", (1, 512, 30, 6), None, (512, 512, 3, 3), 1, f32, False),
+        ("conv4_2 piece B=4", (4, 512, 30, 6), None, (512, 512, 3, 3), 1, f32, False),
+        ("conv4_2 remainder slice", (1, 512, 30, 30), (24, 30), (512, 512, 3, 3), 1, f32, False),
         ("conv5_x piece B=1", (1, 512, 16, 4), None, (512, 512, 3, 3), 1, f32, False),
         ("conv5_x piece B=4", (4, 512, 16, 4), None, (512, 512, 3, 3), 1, f32, False),
+        ("conv5_x remainder slice", (1, 512, 16, 16), (12, 16), (512, 512, 3, 3), 1, f32, False),
         ("conv1_1 local B=1", (1, 3, 226, 226), None, (64, 3, 3, 3), 1, f32, False),
+        ("conv1_2 local B=1", (1, 64, 226, 226), None, (64, 64, 3, 3), 1, f32, False),
         ("conv1_2 local B=4", (4, 64, 226, 226), None, (64, 64, 3, 3), 1, f32, False),
+        ("conv2_1 local B=1", (1, 64, 114, 114), None, (128, 64, 3, 3), 1, f32, False),
         # edges
         ("C_O=7 K=5 stride 2", (1, 8, 11, 17), None, (7, 8, 5, 5), 2, f32, False),
         ("K=1", (1, 4, 9, 9), None, (64, 4, 1, 1), 1, f32, False),
@@ -309,16 +375,21 @@ def conv_cases(torch):
 def check_conv(torch, timer, gen, name, xs, sl, ws, stride, dtype,
                headline) -> dict:
     import torch.nn.functional as F
-    from repro_torch.kernels.conv2d import conv2d, conv2d_plain
+    from repro_torch.kernels.conv2d import conv2d, conv2d_plain, conv_plan
 
     x = _rand(torch, gen, xs, dtype, 0.5)
     if sl is not None:
         x = x[..., sl[0]:sl[1]]  # a width slice, read in place
     c_out, c_in, K, _ = ws
     w = _rand(torch, gen, ws, dtype, (c_in * K * K) ** -0.5)
+    plan = conv_plan(x.shape, ws, stride, dtype)
     got = conv2d(x, w, stride)
     torch.cuda.synchronize()
     want = conv2d_plain(x, w, stride)
+    # an R-split is summed in a fixed order: run twice, same bits
+    if plan.cluster > 1:
+        require(bool(torch.equal(conv2d(x, w, stride), got)),
+                f"{name}: two runs of the split conv differ")
     require(got.shape == want.shape and got.dtype == dtype,
             f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
     require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
@@ -343,12 +414,31 @@ def check_conv(torch, timer, gen, name, xs, sl, ws, stride, dtype,
     return {"case": name, "kernel": "conv2d", "shape": [list(x.shape),
                                                         list(ws), stride],
             "dtype": dn, "headline": headline,
+            "plan": {"tile": list(plan.tile), "splits": plan.cluster,
+                     "blocks": plan.blocks},
             "max_abs_err": float(err.max()), "tol_coef": coef,
             "err_over_tol": ratio, "max_abs_err_vs_f64": float(err64.max()),
             "ms": timer.ms(lambda: conv2d(x, w, stride)),
             "plain_ms": timer.ms(lambda: conv2d_plain(x, w, stride)),
             "library_ms": timer.ms(lambda: F.conv2d(x, w, stride=stride)),
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_conv_fold(torch, gen, name, xs, ws) -> dict:
+    """Property (ii): the functional path's folded launch (n pieces stacked
+    into N) gives each piece the bits of the pool's per-piece launch."""
+    from repro_torch.kernels.conv2d import conv2d, conv_plan
+
+    x = _rand(torch, gen, xs, torch.float32, 0.5)
+    w = _rand(torch, gen, ws, torch.float32, (ws[1] * ws[2] * ws[3]) ** -0.5)
+    folded = conv2d(x, w, 1)
+    for i in range(xs[0]):
+        require(bool(torch.equal(conv2d(x[i:i + 1], w, 1), folded[i:i + 1])),
+                f"{name}: piece {i} alone differs from the folded launch")
+    plans = [conv_plan(xs, ws, 1), conv_plan((1,) + tuple(xs[1:]), ws, 1)]
+    return {"case": name, "pieces": xs[0], "bit_identical": True,
+            "plans": [{"tile": list(p.tile), "splits": p.cluster}
+                      for p in plans]}
 
 
 def ssd_cases(torch):
@@ -513,9 +603,52 @@ def phase_kernels(torch) -> list[dict]:
     cases = [check_gemm(torch, timer, gen, *c) for c in gemm_cases(torch)]
     cases += [check_conv(torch, timer, gen, *c) for c in conv_cases(torch)]
     cases += [check_ssd(torch, timer, gen, *c) for c in ssd_cases(torch)]
+    folds = [check_conv_fold(torch, gen, f"{n}: 10 pieces folded vs one by "
+                             "one", (10,) + xs, ws)
+             for n, xs, ws in (("conv4_2", (512, 30, 6), (512, 512, 3, 3)),
+                               ("conv5_x", (512, 16, 4), (512, 512, 3, 3)))]
     emit({"phase": "kernels", "timing": "median of 15 calls, CUDA events, "
-          "L2 overwritten before each call, TF32 off", "cases": cases})
+          "L2 overwritten before each call, TF32 off", "cases": cases,
+          "folded_vs_pieces": folds})
     return cases
+
+
+def time_kernels(torch, checkout: str) -> None:
+    """Only time ``skinny_gemm`` and ``conv2d`` of the ``repro_torch`` under
+    ``checkout/src`` at this script's f32 cases, as the ``kernels`` phase
+    times them, and print one JSON line: run it on two checkouts in one
+    call (parent, change, change, parent) to hold two versions of the
+    kernels against each other on one card.  The wrappers' signatures are
+    the same in every version of the port."""
+    import repro_torch
+    from repro_torch.kernels.conv2d import conv2d
+    from repro_torch.kernels.skinny_gemm import skinny_gemm
+
+    require(os.path.realpath(repro_torch.__file__).startswith(
+        os.path.realpath(checkout)), f"repro_torch not from {checkout}")
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for name, A_src, F, dtype, *rest in gemm_cases(torch):
+        if dtype != torch.float32 or any(rest[1:]):
+            continue
+        m, b = A_src if isinstance(A_src, tuple) else A_src.shape
+        A = _rand(torch, gen, (m, b), dtype, b ** -0.5)
+        X = _rand(torch, gen, (b, F), dtype)
+        rows.append({"case": name, "kernel": "skinny_gemm",
+                     "ms": timer.ms(lambda: skinny_gemm(A, X))})
+    for name, xs, sl, ws, stride, dtype, _ in conv_cases(torch):
+        if dtype != torch.float32:
+            continue
+        x = _rand(torch, gen, xs, dtype, 0.5)
+        if sl is not None:
+            x = x[..., sl[0]:sl[1]]
+        w = _rand(torch, gen, ws, dtype, (ws[1] * ws[2] * ws[3]) ** -0.5)
+        rows.append({"case": name, "kernel": "conv2d",
+                     "ms": timer.ms(lambda: conv2d(x, w, stride))})
+    emit({"phase": "time_kernels", "source": os.path.dirname(
+        repro_torch.__file__), "nvidia_smi": nvidia_smi_line(),
+          "cases": rows})
 
 
 # ---------------------------------------------------------------------------
@@ -1084,7 +1217,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
+    ap.add_argument("--time-kernels", metavar="CHECKOUT",
+                    help="only time the skinny GEMM and the conv of the port "
+                         "under CHECKOUT/src at this script's f32 cases (one "
+                         "JSON line, no result line)")
     args = ap.parse_args()
+    if args.time_kernels:
+        sys.path.insert(0, os.path.join(os.path.abspath(args.time_kernels),
+                                        "src"))
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
         if p not in ALL_PHASES:
@@ -1097,6 +1237,12 @@ def main() -> int:
               "needs an NVIDIA GPU and has no CPU fallback", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails here when run outside the repo)
+
+    if args.time_kernels:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        time_kernels(torch, args.time_kernels)
+        return 0
 
     # the yardsticks and the plain versions run in full f32 on the card
     torch.backends.cudnn.allow_tf32 = False

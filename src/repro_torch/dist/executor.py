@@ -199,10 +199,11 @@ class CodedExecutor:
         if op.kind == "matmul":
             k, t_p, d = op.x.shape
             coded_in = scheme.encode(op.x.reshape(k, -1)).reshape(scheme.n, t_p, d)
-            # the piece GEMM is the hand-written kernel (its tiled form:
-            # neither t_p nor d_in is small), with one fixed reduction
-            # order — a library `@` picks a shape-dependent algorithm,
-            # which breaks byte-for-byte equality across backends
+            # the piece GEMM is the hand-written kernel (its split-K GEMV
+            # regime for t_p <= 16, its tiled regime above), with one
+            # reduction order fixed by t_p's regime and d_in — a library
+            # `@` picks a shape-dependent algorithm, which breaks
+            # byte-for-byte equality across backends
             fns = [lambda i=i: skinny_gemm(coded_in[i], op.w)
                    for i in range(scheme.n)]
         else:

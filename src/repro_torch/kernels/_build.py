@@ -5,8 +5,9 @@ library with a plain C interface and loaded with ``ctypes``; no PyTorch
 header is included, so a build takes seconds.  Libraries land in
 ``<checkout>/build/repro_torch_kernels/`` (override with the
 ``REPRO_TORCH_BUILD_DIR`` environment variable), named by a hash of the
-source text and the compiler flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing is built at import: the first launch of
+source text, of every shared header (``csrc/*.cuh``) and of the compiler
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  Nothing is built at import: the first launch of
 a kernel (or an explicit :func:`build_all`) triggers the build.  A failed
 build raises — there is no fallback.
 """
@@ -62,6 +63,9 @@ def _target(name: str) -> tuple[Path, Path]:
         raise RuntimeError(f"kernel source missing: {src}")
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):  # any source may include any
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -14,12 +14,20 @@ moved feeds hundreds of multiply-adds).
 
 What the design does about it (``csrc/conv2d.cu``): implicit GEMM
 ``out (C_O, P) = w (C_O, R) @ patch (R, P)`` with ``R = C_I*K*K`` and
-``P = N*H_O*W_O``; a block owns a 64 x 64 tile of (C_O, pixels flattened
-over the batch) so that pieces as narrow as ``W_O = 2`` still fill tiles,
-loops over R in steps of 16 through shared memory and keeps a 4 x 4 block
-of f32 accumulators per thread.  No im2col buffer exists.  All edges are
-masked: any C_O, K and stride.  Inputs are upcast to f32, accumulated with
-plain ``fmaf`` (no TF32), rounded once to x's dtype.
+``P = N*H_O*W_O``, run by the pipelined register-blocked mainloop that the
+skinny GEMM's tiled regime shares (``csrc/sgemm_mainloop.cuh``: a 4-stage
+cp.async ring, the weight staged K-major, the patch gathered on the fly by
+4-byte copies with zero fill at the edges, 8 x 8 or 4 x 4 outputs per
+thread).  No im2col buffer exists.  VGG16's coded pieces are narrow, so the
+(C_O, P) tiles alone leave the deep layers with a handful of blocks:
+:func:`conv_plan` splits R over a thread-block cluster of up to 8 blocks
+(:func:`conv_splits`, a function of the weight's shape only), each rank
+sums its range as one ascending chain and the partials are added in rank
+order through distributed shared memory — so every output element has one
+reduction order whatever N, H, W or the tile, and n stacked pieces give the
+bits of n separate launches.  All edges are masked: any C_O, K and stride.
+Inputs are upcast to f32, accumulated with plain ``fmaf`` (no TF32),
+rounded once to x's dtype.
 
 Width slices: x is read through its strides, so ``x[..., a:b]`` is not
 copied; w is made contiguous if it is not; the output is contiguous.
@@ -35,9 +43,11 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _tiles
+from ._tiles import LaunchPlan
 
-__all__ = ["conv2d", "conv2d_plain"]
+__all__ = ["conv2d", "conv2d_plain", "conv_plan", "conv_splits"]
+
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
@@ -49,13 +59,50 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1
     return F.conv2d(x.float(), w.float(), stride=stride).to(x.dtype)
 
 
+def conv_splits(w_shape) -> tuple:
+    """The R-split: ascending ranges of ``R = C_I*K*K``.  By the
+    multiply-adds one output pixel takes (``C_O * R``): 1 range below 2^17,
+    2 below 2^20, else 8 (VGG16: conv1_x and conv2_1 unsplit, conv2_2 to
+    conv3_3 in 2, conv4_x and conv5_x in 8 — the best counts in timings of
+    1, 2, 4 and 8 at their pieces on an H100).  A function of the weight's
+    shape only, never of the input's."""
+    c_out, c_in, K, _ = w_shape
+    R = c_in * K * K
+    work = c_out * R
+    return _tiles.split_ranges(R, 1 if work < 1 << 17 else
+                               2 if work < 1 << 20 else _tiles.MAX_SPLIT)
+
+
+def conv_plan(x_shape, w_shape, stride: int = 1, dtype=torch.float32
+              ) -> LaunchPlan:
+    """How ``conv2d(x, w, stride)`` is launched: tile, R-split, cluster,
+    grid and shared memory.  (Both dtypes take the same plan.)"""
+    N, _, h_in, w_in = x_shape
+    c_out, _, K, _ = w_shape
+    P = N * ((h_in - K) // stride + 1) * ((w_in - K) // stride + 1)
+    splits = conv_splits(w_shape)
+    # about one block per SM; a 128 x 128 partial tile summed over 4 or more
+    # ranks costs more through distributed shared memory than it saves
+    config, grid = _tiles.pick_tile(c_out, P, len(splits), 128,
+                                    first=int(len(splits) >= 4))
+    tile = _tiles.TILES[config]
+    # the ring, then one int offset of x per contraction row of a split
+    smem = _tiles.tile_smem(tile) + 4 * (splits[0][1] - splits[0][0])
+    return LaunchPlan("conv", config, tile, _tiles.tile_threads(tile),
+                      splits, grid, smem, smem,
+                      _tiles.fill_note(grid[0] * grid[1],
+                                       f"C_O={c_out} x P={P} in the smallest "
+                                       f"tile, R split {len(splits)} ways "
+                                       f"(at most {_tiles.MAX_SPLIT})"))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv2d")
     fn = lib.conv2d_launch
     if not fn.argtypes:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 4
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -89,20 +136,26 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
                         f"{x.dtype}")
     h_out = (h_in - K) // stride + 1
     w_out = (w_in - K) // stride + 1
-    if N * h_out * w_out >= 2 ** 31 or (c_out + 63) // 64 > 65535:
+    plan = conv_plan(x.shape, w.shape, stride, x.dtype)
+    sn, sc, sh, sw = x.stride()
+    # the kernel keeps the offset of a contraction row within an image as int
+    if N * h_out * w_out >= 2 ** 31 or plan.grid[1] > 65535 \
+            or plan.grid[0] >= 2 ** 31 \
+            or (c_in - 1) * sc + (K - 1) * (sh + sw) >= 2 ** 31:
         raise ValueError(f"shape out of range for the kernel: {tuple(x.shape)}")
     w = w.contiguous()
     out = torch.empty((N, c_out, h_out, w_out), dtype=x.dtype, device=x.device)
-    sn, sc, sh, sw = x.stride()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().conv2d_launch(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), N, c_in, c_out,
-            h_out, w_out, K, stride, sn, sc, sh, sw, _DTYPES[x.dtype], stream)
+            h_out, w_out, K, stride, sn, sc, sh, sw,
+            _DTYPES[x.dtype], plan.config, plan.cluster, plan.chunk,
+            plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"conv2d launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                           f"stride {stride}, {x.dtype})")
+                           f"stride {stride}, {x.dtype}, {plan})")
     with _count_lock:
         conv2d.launches += 1
     return out

@@ -4,32 +4,60 @@
 // (body _gemm_kernel), which is every MDS/LT encode (eq. 3), every decode
 // (eq. 4) and the worker-pool piece GEMM.
 //
-// Two regimes, one entry point:
+// Three regimes, one entry point.  The launch plan (regime, tile, split,
+// shared memory) is made in Python (kernels/skinny_gemm.py::piece_plan) and
+// checked here: a plan this file cannot take returns cudaErrorInvalidValue.
 //
-//  * coding (m, b <= 16): memory-bound, (b + m) * F elements moved.  A sits
-//    in shared memory as f32.  Each thread owns one 16-byte group of
+//  * coding (m, b <= 16): bound by bytes, (b + m) * F elements moved.  A
+//    sits in shared memory as f32.  Each thread owns one 16-byte group of
 //    neighbouring columns of F, reads its b inputs once into registers and
 //    writes m outputs.  When F is not a multiple of the group (or a pointer
-//    is not 16-byte aligned) rows are not aligned, and a scalar kernel with
-//    one column per thread takes over; the ragged end is masked, never
-//    padded.
-//  * piece GEMM (anything larger): a shared-memory tiled GEMM, 64 x 64
-//    output tile, depth 16, 4 x 4 outputs per thread.
+//    is not 16-byte aligned) a scalar kernel with one column per thread
+//    takes over; the ragged end is masked, never padded.
+//  * GEMV (m <= 16 < b: the decode-step pieces, t_p = 1 at B = 8): bound by
+//    bytes, the b x F weight is read once.  A block owns a slab of 32
+//    column groups (128 f32 / 256 bf16 columns); its 256 threads are 32
+//    groups x 8 contraction lanes, so each warp reads 512 contiguous bytes
+//    of one row, and each thread keeps MR x 4 (f32) or MR x 8 (bf16)
+//    accumulators (MR: m rounded up to a power of two).  The contraction
+//    is split over the 8 lanes of a block (lane l takes rows l, l + 8, ...)
+//    and over the `splits` blocks of a thread-block cluster (ascending
+//    ranges of `chunk` rows).  Loads: an unrolled run of 16
+//    ld.global.nc.v4 per thread (8 where MR x V > 32) for a tile of rows,
+//    issued before the tile's rows of A are staged in shared memory, so the
+//    two overlap.  Not a cp.async/TMA ring: each byte of the weight is used
+//    once, so staging it in shared memory would only add a copy, and 128
+//    blocks x 256 threads x 16 x 16 bytes keep 8 MB in flight.  (Of 8, 16
+//    and 32 groups a block, 32 was the fastest at both Zamba2 decode shapes
+//    on an H100.)  Partials are summed in a fixed order: the lanes through
+//    shared memory (lane 0, 1, ..., 7), then the cluster ranks through
+//    distributed shared memory in ascending rank.  One
+//    launch, no scratch buffer.
+//  * tiled (m > 16: prefill pieces): bound by the f32 FMA rate.  The
+//    pipelined, register-blocked mainloop of sgemm_mainloop.cuh (4-stage
+//    cp.async ring, 8 x 8 or 4 x 4 outputs per thread, A staged K-major),
+//    no split: every output is one ascending-k fmaf chain, so the tile may
+//    follow the shape.
 //
-// Numerics, all kernels: inputs are upcast to f32, every output element is
-// acc = 0; for i = 0 .. b-1: acc = fmaf(A[r, i], X[i, c], acc); the result
-// is rounded once to X's type.  No TF32, no tensor cores: decode matrices at
-// k >= 12 carry entries of 1e4-1e5 and results are judged at f32 roundoff.
-// Because the reduction order of one output element never depends on where
-// the element sits in F, a decode tiled over column blocks is bit-identical
-// to the one-shot decode.
+// Tensor cores stay out: TF32 breaks the numerics below; TF32 wgmma wants
+// a K-major B, and X (the weight) is (d_in, d_out); a 3xTF32 or bf16 wgmma
+// design is its own piece of work.
+//
+// Numerics, all regimes: inputs are upcast to f32, products are plain fmaf,
+// the result is rounded once to X's type.  Decode matrices at k >= 12 carry
+// entries of 1e4-1e5 and results are judged at f32 roundoff.  The
+// reduction order of one output element depends on the regime (so on m)
+// and on b only, never on F or on where the element sits, so a GEMM tiled
+// over column blocks is bit-identical to the one-shot GEMM.
 //
 // Kernels launch on the stream they are given, allocate nothing and do not
-// synchronise.  The entry point returns cudaGetLastError().
+// synchronise.  The entry point returns the launch's error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sgemm_mainloop.cuh"
 
 namespace {
 
@@ -154,111 +182,304 @@ coding_gemm_scalar(const T* __restrict__ A, const T* __restrict__ X,
   }
 }
 
-// Piece GEMM: C (M, N) = A (M, K) @ B (K, N), all row-major.
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-constexpr int GEMM_THREADS = (BM / TM) * (BN / TN);  // 256
 
-template <typename T>
-__global__ void __launch_bounds__(GEMM_THREADS)
-tiled_gemm(const T* __restrict__ A, const T* __restrict__ B,
-           T* __restrict__ C, int M, int N, int K) {
-  // +4 keeps rows 16-byte aligned and spreads the transposed stores over banks
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
+// GEMV regime: m <= 16 < b.  Block = one column slab x one cluster rank.
+constexpr int GEMV_THREADS = 256;
+constexpr int GEMV_GROUPS = 32;  // 16-byte column groups per block: one warp
+constexpr int GEMV_LANES = GEMV_THREADS / GEMV_GROUPS;  // contraction lanes
+
+template <typename T, int MR, bool VEC>
+__global__ void __launch_bounds__(GEMV_THREADS)
+piece_gemv_splitk(const T* __restrict__ A, const T* __restrict__ X,
+                  T* __restrict__ out, int m, int b, long long F, int chunk) {
+  constexpr int V = Group<T>::N;
+  constexpr int W = GEMV_GROUPS * V;  // columns per block
+  // loads in flight per thread (fewer where the accumulators crowd them)
+  constexpr int U = MR * V <= 32 ? 16 : 8;
+  constexpr int TK = GEMV_LANES * U;  // rows of A staged per tile
+  __shared__ float sA[MR][TK];
+  __shared__ float red[GEMV_LANES][W];
+  __shared__ float part[MR][W];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int splits = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const int g = tid % GEMV_GROUPS, l = tid / GEMV_GROUPS;
+  const long long slab0 = (long long)(blockIdx.x / splits) * W;
+  const long long col = slab0 + g * V;
+  const int k0 = rank * chunk;
+  const int k1 = min(b, k0 + chunk);
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  float acc[MR][V];
 #pragma unroll
-    for (int i = 0; i < (BM * BK) / GEMM_THREADS; ++i) {
-      const int e = tid + i * GEMM_THREADS;
-      const int kk = e % BK, mm = e / BK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] =
-          (gm < M && gk < K) ? to_f32(A[(long long)gm * K + gk]) : 0.f;
+  for (int r = 0; r < MR; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
+
+  for (int t0 = k0; t0 < k1; t0 += TK) {
+    // this thread's U rows of the tile: t0 + l, t0 + l + LANES, ...  The
+    // loads are issued first, so A's staging below overlaps them.
+    float xs[U][V];
+    uint4 raw[VEC ? U : 1];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = t0 + l + GEMV_LANES * u;
+      if constexpr (VEC) {
+        raw[u] = (k < k1 && col < F)
+                     ? __ldg(reinterpret_cast<const uint4*>(
+                           X + (long long)k * F + col))
+                     : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          xs[u][v] = (k < k1 && col + v < F)
+                         ? to_f32(X[(long long)k * F + col + v])
+                         : 0.f;
+      }
     }
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / GEMM_THREADS; ++i) {
-      const int e = tid + i * GEMM_THREADS;
-      const int nn = e % BN, kk = e / BN;
-      const int gn = n0 + nn, gk = k0 + kk;
-      Bs[kk][nn] =
-          (gk < K && gn < N) ? to_f32(B[(long long)gk * N + gn]) : 0.f;
+    __syncthreads();  // the previous tile of A is consumed
+    for (int i = tid; i < MR * TK; i += GEMV_THREADS) {
+      const int r = i / TK, kk = i % TK, k = t0 + kk;
+      sA[r][kk] = (r < m && k < k1) ? to_f32(A[(long long)r * b + k]) : 0.f;
     }
     __syncthreads();
+    if constexpr (VEC) {
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-      const float bb[TN] = {b4.x, b4.y, b4.z, b4.w};
+      for (int u = 0; u < U; ++u) Group<T>::unpack(raw[u], xs[u]);
+    }
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+    for (int u = 0; u < U; ++u) {
+      const int kk = l + GEMV_LANES * u;
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+      for (int r = 0; r < MR; ++r) {
+        const float a = sA[r][kk];
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[r][v] = fmaf(a, xs[u][v], acc[r][v]);
+      }
+    }
+  }
+
+  // lanes, in ascending order, one row of A at a time
+#pragma unroll
+  for (int r = 0; r < MR; ++r) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) red[l][g * V + v] = acc[r][v];
+    __syncthreads();
+    if (tid < W) {
+      float s = red[0][tid];
+#pragma unroll
+      for (int q = 1; q < GEMV_LANES; ++q) s += red[q][tid];
+      part[r][tid] = s;
     }
     __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx * TN + j;
-      if (gn < N) C[(long long)gm * N + gn] = from_f32<T>(acc[i][j]);
+  // cluster ranks, in ascending order, through distributed shared memory
+  cl.sync();
+  for (int e = rank * GEMV_THREADS + tid; e < MR * W;
+       e += splits * GEMV_THREADS) {
+    const int r = e / W;
+    const long long c = slab0 + e % W;
+    if (r < m && c < F) {
+      float s = cl.map_shared_rank(&part[0][0], 0)[e];
+      for (int q = 1; q < splits; ++q)
+        s += cl.map_shared_rank(&part[0][0], q)[e];
+      out[(long long)r * F + c] = from_f32<T>(s);
     }
   }
+  cl.sync();  // no block leaves while another still reads its partials
+}
+
+// Tiled regime: B is X (K, N) row-major.  VEC: f32, N % 4 == 0 and X
+// 16-byte aligned, so rows are copied as 16-byte groups.
+template <typename T, class Tl, bool VEC>
+struct DenseB {
+  static constexpr int PER = Tl::BN * sgemm::BK / Tl::THREADS;
+  static constexpr int PER4 = PER / 4;
+  const T* B;
+  int N, n0;
+  float reg[PER];  // bf16: the tile in flight
+
+  __device__ void fetch(float* Bs, int k0, int k_end) {
+    if constexpr (sizeof(T) == 4 && VEC) {
+#pragma unroll
+      for (int i = 0; i < PER4; ++i) {
+        const int e = threadIdx.x + i * Tl::THREADS;
+        const int kk = e / (Tl::BN / 4), c = (e % (Tl::BN / 4)) * 4;
+        const int n = n0 + c, gk = k0 + kk;
+        const int bytes = (gk < k_end && n < N) ? min(16, (N - n) * 4) : 0;
+        sgemm::cp_async16(&Bs[kk * Tl::BN + c],
+                          reinterpret_cast<const float*>(
+                              bytes ? B + (long long)gk * N + n : B),
+                          bytes);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int e = threadIdx.x + i * Tl::THREADS;
+        const int kk = e / Tl::BN, c = e % Tl::BN;
+        const int n = n0 + c, gk = k0 + kk;
+        const bool ok = gk < k_end && n < N;
+        if constexpr (sizeof(T) == 4) {
+          sgemm::cp_async4(&Bs[kk * Tl::BN + c],
+                           reinterpret_cast<const float*>(
+                               ok ? B + (long long)gk * N + n : B),
+                           ok);
+        } else {
+          reg[i] = ok ? to_f32(B[(long long)gk * N + n]) : 0.f;
+        }
+      }
+    }
+  }
+  __device__ void store(float* Bs) {
+    if constexpr (sizeof(T) != 4) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int e = threadIdx.x + i * Tl::THREADS;
+        Bs[(e / Tl::BN) * Tl::BN + e % Tl::BN] = reg[i];
+      }
+    }
+  }
+};
+
+template <typename T, class Tl, bool VEC>
+__global__ void __launch_bounds__(Tl::THREADS)
+piece_gemm_tiled(const T* __restrict__ A, const T* __restrict__ X,
+                 T* __restrict__ C, int M, int N, int K) {
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.y * Tl::BM, n0 = blockIdx.x * Tl::BN;
+  sgemm::RowMajorA<T, Tl> la{A, M, K, m0};
+  DenseB<T, Tl, VEC> lb{X, N, n0};
+  float acc[Tl::TM][Tl::TN];
+#pragma unroll
+  for (int i = 0; i < Tl::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::TN; ++j) acc[i][j] = 0.f;
+  sgemm::mainloop<Tl>(smem, la, lb, 0, K, acc);
+  auto store = [&](int r, int c, float v) {
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm < M && gn < N) C[(long long)gm * N + gn] = from_f32<T>(v);
+  };
+  sgemm::split_reduce_store<Tl>(smem, acc, 1, store);
+}
+
+enum Regime { CODING = 0, GEMV = 1, TILED = 2 };
+
+int regime_of(int m, int b) {
+  if (m <= MAX_SMALL && b <= MAX_SMALL) return CODING;
+  return m <= MAX_SMALL ? GEMV : TILED;
 }
 
 template <typename T>
-void launch(const void* A, const void* X, void* out, int m, int b, long long F,
-            cudaStream_t stream) {
+int launch_coding(const T* a, const T* x, T* o, int m, int b, long long F,
+                  cudaStream_t stream) {
+  constexpr int V = Group<T>::N;
+  const bool aligned = (F % V == 0) &&
+                       (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(o) % 16 == 0);
+  if (aligned) {
+    const long long groups = F / V;
+    const unsigned blocks =
+        (unsigned)((groups + CODING_THREADS - 1) / CODING_THREADS);
+    coding_gemm_vec<T><<<blocks, CODING_THREADS, 0, stream>>>(a, x, o, m, b, F);
+  } else {
+    long long blocks = (F + CODING_THREADS - 1) / CODING_THREADS;
+    if (blocks > 65536) blocks = 65536;  // grid-stride covers the rest
+    coding_gemm_scalar<T><<<(unsigned)blocks, CODING_THREADS, 0, stream>>>(
+        a, x, o, m, b, F);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int MR>
+int launch_gemv(const T* a, const T* x, T* o, int m, int b, long long F,
+                int splits, int chunk, cudaStream_t stream) {
+  constexpr int W = GEMV_GROUPS * Group<T>::N;
+  const long long slabs = (F + W - 1) / W;
+  if (m > MR || slabs * splits > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(slabs * splits));
+  const bool vec = F % Group<T>::N == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  void (*kernel)(const T*, const T*, T*, int, int, long long, int) =
+      vec ? &piece_gemv_splitk<T, MR, true> : &piece_gemv_splitk<T, MR, false>;
+  return (int)sgemm::launch_cluster(kernel, grid, GEMV_THREADS, 0, splits,
+                                    stream, a, x, o, m, b, F, chunk);
+}
+
+template <typename T, class Tl>
+int launch_tiled(const T* a, const T* x, T* o, int m, int b, long long F,
+                 int smem, cudaStream_t stream) {
+  if (smem != Tl::SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  const long long gy = (m + Tl::BM - 1) / Tl::BM;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((F + Tl::BN - 1) / Tl::BN), (unsigned)gy);
+  const bool vec = sizeof(T) == 4 && F % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  void (*kernel)(const T*, const T*, T*, int, int, int) =
+      vec ? &piece_gemm_tiled<T, Tl, true> : &piece_gemm_tiled<T, Tl, false>;
+  return (int)sgemm::launch_cluster(kernel, grid, Tl::THREADS, smem, 1,
+                                    stream, a, x, o, m, (int)F, b);
+}
+
+template <typename T>
+int launch(const void* A, const void* X, void* out, int m, int b, long long F,
+           int regime, int config, int splits, int chunk, int smem,
+           cudaStream_t stream) {
   const T* a = static_cast<const T*>(A);
   const T* x = static_cast<const T*>(X);
   T* o = static_cast<T*>(out);
-  if (m <= MAX_SMALL && b <= MAX_SMALL) {
-    constexpr int V = Group<T>::N;
-    const bool aligned = (F % V == 0) &&
-                         (reinterpret_cast<uintptr_t>(X) % 16 == 0) &&
-                         (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-    if (aligned) {
-      const long long groups = F / V;
-      const unsigned blocks =
-          (unsigned)((groups + CODING_THREADS - 1) / CODING_THREADS);
-      coding_gemm_vec<T><<<blocks, CODING_THREADS, 0, stream>>>(a, x, o, m, b,
-                                                                F);
-    } else {
-      long long blocks = (F + CODING_THREADS - 1) / CODING_THREADS;
-      if (blocks > 65536) blocks = 65536;  // grid-stride covers the rest
-      coding_gemm_scalar<T><<<(unsigned)blocks, CODING_THREADS, 0, stream>>>(
-          a, x, o, m, b, F);
+  if (m < 1 || b < 1 || F < 1 || F >= 0x7fffffffLL ||
+      regime != regime_of(m, b))
+    return (int)cudaErrorInvalidValue;
+  if (regime == CODING) {
+    if (config != 0 || splits != 1 || smem != 0)
+      return (int)cudaErrorInvalidValue;
+    return launch_coding<T>(a, x, o, m, b, F, stream);
+  }
+  if (regime == GEMV) {
+    // the splits are `splits` ascending ranges of `chunk` rows, none empty
+    if (splits < 1 || splits > sgemm::MAX_SPLIT || chunk < 1 || smem != 0 ||
+        (long long)(splits - 1) * chunk >= b ||
+        (long long)splits * chunk < b)
+      return (int)cudaErrorInvalidValue;
+    switch (config) {  // MR = 2^config rows of A
+      case 0: return launch_gemv<T, 1>(a, x, o, m, b, F, splits, chunk, stream);
+      case 1: return launch_gemv<T, 2>(a, x, o, m, b, F, splits, chunk, stream);
+      case 2: return launch_gemv<T, 4>(a, x, o, m, b, F, splits, chunk, stream);
+      case 3: return launch_gemv<T, 8>(a, x, o, m, b, F, splits, chunk, stream);
+      case 4: return launch_gemv<T, 16>(a, x, o, m, b, F, splits, chunk, stream);
+      default: return (int)cudaErrorInvalidValue;
     }
-  } else {
-    const dim3 grid((unsigned)((F + BN - 1) / BN), (unsigned)((m + BM - 1) / BM));
-    tiled_gemm<T><<<grid, GEMM_THREADS, 0, stream>>>(a, x, o, m, (int)F, b);
+  }
+  if (splits != 1 || chunk != b) return (int)cudaErrorInvalidValue;
+  switch (config) {
+#define TILE_CASE(ID, BM, BN, TM, TN) \
+  case ID:                            \
+    return launch_tiled<T, sgemm::Tile<BM, BN, TM, TN>>(a, x, o, m, b, F, smem, stream);
+    SGEMM_FOR_EACH_TILE(TILE_CASE)
+#undef TILE_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  regime: 0 coding, 1 GEMV, 2 tiled;
+// config: GEMV log2(MR), tiled the tile index of SGEMM_FOR_EACH_TILE;
+// splits / chunk: the contraction split; smem: dynamic shared bytes.
+// Returns the launch's error (0 = launched), cudaErrorInvalidValue for a
+// plan this file cannot take.
 extern "C" int skinny_gemm_launch(const void* A, const void* X, void* out,
                                   int m, int b, long long F, int dtype,
-                                  void* stream) {
+                                  int regime, int config, int splits,
+                                  int chunk, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch<float>(A, X, out, m, b, F, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(A, X, out, m, b, F, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch<float>(A, X, out, m, b, F, regime, config, splits, chunk,
+                         smem, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(A, X, out, m, b, F, regime, config, splits,
+                                 chunk, smem, s);
+  return (int)cudaErrorInvalidValue;
 }

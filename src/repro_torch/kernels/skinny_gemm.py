@@ -7,19 +7,30 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/mds_encode.py::
 skinny_gemm_pallas`` (body ``_gemm_kernel``), reached through
 ``mds_encode_pallas``, ``mds_decode_pallas`` and the executor's piece GEMM.
 
-What bounds it on an H100: in the *coding* regime (m, b <= 16: every MDS/LT
-encode and decode) the card's memory — ``(b + m) * F`` elements move and
-each takes at most 16 multiply-adds.  In the *piece GEMM* regime (anything
-larger) the f32 FMA rate.
+Three regimes (``csrc/skinny_gemm.cu``), chosen by :func:`piece_plan`:
 
-What the design does about it (``csrc/skinny_gemm.cu``): coding — A lives in
-shared memory, each thread owns one 16-byte group of neighbouring columns,
-reads its b inputs once and writes m outputs, so every byte crosses the
-memory bus exactly once in full-width transactions; a ragged F is masked by
-a scalar variant, not padded and copied as the TPU kernel did.  Piece GEMM —
-a 64 x 64 x 16 shared-memory tiled GEMM.  Both accumulate in f32 with plain
-``fmaf`` in ascending order of the contraction index (no TF32, no tensor
-cores), so an output element has the same value whichever block of F it is
+* *coding* (m, b <= 16: every MDS/LT encode and decode) — bound by bytes,
+  ``(b + m) * F`` elements move and each takes at most 16 multiply-adds.
+  A lives in shared memory, each thread owns one 16-byte group of
+  neighbouring columns, reads its b inputs once and writes m outputs; a
+  ragged F is masked by a scalar variant, not padded and copied as the TPU
+  kernel did.
+* *GEMV* (m <= 16 < b: the decode-step pieces, t_p = 1) — bound by bytes,
+  the ``b x F`` weight is read once.  A block owns 32 column groups (a warp
+  reads 512 contiguous bytes of a row); its 256 threads are 32 groups x 8
+  contraction lanes with 16 (or 8) 16-byte loads in flight each, and the contraction is split over the lanes and
+  over the blocks of a thread-block cluster (:func:`gemv_splits`, a
+  function of b alone), the partials summed in a fixed order through
+  shared and distributed shared memory.
+* *tiled* (m > 16: the prefill pieces) — bound by the f32 FMA rate.  The
+  pipelined register-blocked mainloop of ``csrc/sgemm_mainloop.cuh`` (a
+  4-stage cp.async ring, 8 x 8 or 4 x 4 outputs per thread), each output one
+  ascending fmaf chain, so the tile follows the shape (``_tiles.pick_tile``).
+
+All accumulate in f32 with plain ``fmaf`` (no TF32, no tensor cores: TF32
+breaks the numerics, and a 3xTF32 or bf16 ``wgmma`` design is its own
+work).  The reduction order of an output element depends on the regime and
+on b only, so an element has the same bits whichever block of F it is
 computed in.  A is cast to X's dtype first (bf16 rounds the generator — the
 reference does the same and parity depends on it); the output has X's dtype.
 
@@ -33,18 +44,73 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, _tiles
+from ._tiles import LaunchPlan
 
-__all__ = ["skinny_gemm", "skinny_gemm_plain", "SMALL"]
+__all__ = ["skinny_gemm", "skinny_gemm_plain", "piece_plan", "gemv_splits",
+           "SMALL"]
 
-SMALL = 16  # m, b <= SMALL selects the coding kernel
+SMALL = 16  # m, b <= SMALL selects the coding kernel; m <= SMALL the GEMV
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_REGIMES = {"coding": 0, "gemv": 1, "tiled": 2}
 _count_lock = threading.Lock()
+
+CODING_THREADS = 256
+GEMV_THREADS, GEMV_GROUPS = 256, 32
+GEMV_ROWS_PER_SPLIT = 1024  # contraction rows one cluster rank streams, about
 
 
 def skinny_gemm_plain(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: A cast to X's dtype, f32 product, X's dtype."""
     return (A.to(X.dtype).float() @ X.float()).to(X.dtype)
+
+
+def _group(dtype: torch.dtype) -> int:
+    """Elements in one 16-byte group."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def gemv_splits(b: int) -> tuple:
+    """The GEMV regime's contraction ranges: about 1024 rows per cluster
+    rank, at most 8 ranks.  A function of b alone."""
+    return _tiles.split_ranges(b, -(-b // GEMV_ROWS_PER_SPLIT))
+
+
+def piece_plan(m: int, b: int, F: int, dtype=torch.float32) -> LaunchPlan:
+    """How ``A (m, b) @ X (b, F)`` is launched: regime, tile, split,
+    cluster, grid and shared memory."""
+    if min(m, b, F) < 1:
+        raise ValueError(f"empty product: m={m}, b={b}, F={F}")
+    V = _group(dtype)
+    if m <= SMALL and b <= SMALL:
+        grid = (-(-F // (V * CODING_THREADS)), 1)
+        return LaunchPlan("coding", 0, (), CODING_THREADS, ((0, b),), grid,
+                          0, 4 * SMALL * SMALL,
+                          _tiles.fill_note(grid[0], "F is small: bound by "
+                                           "launch latency"))
+    if m <= SMALL:
+        mr = 1 << (m - 1).bit_length()
+        splits = gemv_splits(b)
+        width = GEMV_GROUPS * V
+        grid = (-(-F // width) * len(splits), 1)
+        lanes = GEMV_THREADS // GEMV_GROUPS
+        tk = lanes * (16 if mr * V <= 32 else 8)  # rows of A staged per tile
+        shared = 4 * (mr * tk + lanes * width + mr * width)
+        return LaunchPlan("gemv", mr.bit_length() - 1, (mr, width),
+                          GEMV_THREADS, splits, grid, 0, shared,
+                          _tiles.fill_note(grid[0], f"{len(splits)} split(s) "
+                                           f"of b={b} x {-(-F // width)} "
+                                           "column slabs; bound by bytes, "
+                                           "and narrower slabs measured "
+                                           "slower"))
+    config, grid = _tiles.pick_tile(m, F, 1, 2 * _tiles.N_SMS)
+    tile = _tiles.TILES[config]
+    smem = _tiles.tile_smem(tile)
+    return LaunchPlan("tiled", config, tile, _tiles.tile_threads(tile),
+                      ((0, b),), grid, smem, smem,
+                      _tiles.fill_note(grid[0] * grid[1], "the smallest tile "
+                                       "leaves the card part idle; each "
+                                       "output is one unsplit chain"))
 
 
 def _lib() -> ctypes.CDLL:
@@ -53,7 +119,8 @@ def _lib() -> ctypes.CDLL:
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -79,7 +146,8 @@ def skinny_gemm(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         raise ValueError("X must be contiguous")
     m, b = A.shape
     F = X.shape[1]
-    if F >= 2 ** 31 or (m + 63) // 64 > 65535:
+    plan = piece_plan(m, b, F, X.dtype)
+    if F >= 2 ** 31 or plan.grid[1] > 65535 or plan.grid[0] >= 2 ** 31:
         raise ValueError(f"shape out of range for the kernel: m={m}, F={F}")
     A = A.to(X.dtype).contiguous()
     out = torch.empty((m, F), dtype=X.dtype, device=X.device)
@@ -87,10 +155,11 @@ def skinny_gemm(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().skinny_gemm_launch(
             A.data_ptr(), X.data_ptr(), out.data_ptr(), m, b, F,
-            _DTYPES[X.dtype], stream)
+            _DTYPES[X.dtype], _REGIMES[plan.regime], plan.config,
+            plan.cluster, plan.chunk, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"skinny_gemm launch failed: CUDA error {err} "
-                           f"(m={m}, b={b}, F={F}, {X.dtype})")
+                           f"(m={m}, b={b}, F={F}, {X.dtype}, {plan})")
     with _count_lock:
         skinny_gemm.launches += 1
     return out

@@ -1,0 +1,226 @@
+"""Launch plans of the skinny GEMM and the direct conv (CPU only).
+
+The CUDA kernels run only on the card (chip_smoke.py holds them to their
+plain versions there); how a launch is cut — regime, tile, contraction
+split, cluster, shared memory — is decided in Python, and these tests pin
+the rules the kernels' numerics rely on: the split of a contraction depends
+on the contraction (and, for the conv, the weight) alone, so an output
+element's reduction order never depends on F, N, H, W or P.
+"""
+import re
+from pathlib import Path
+
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from repro_torch.kernels import _build, _tiles
+from repro_torch.kernels.conv2d import conv_plan, conv_splits
+from repro_torch.kernels.skinny_gemm import gemv_splits, piece_plan
+
+CSRC = Path(_build.__file__).resolve().parent / "csrc"
+DTYPES = [torch.float32, torch.bfloat16]
+
+# the main paths' shapes (PERF.md): Zamba2 pieces (t_p, d_in, d_out) and
+# VGG16 (224, n=10, k=6) conv pieces at B = 1 and 4 (x shape, w shape)
+GEMM_MAIN = [(1, 2048, 8192), (1, 8192, 2048), (682, 2048, 8192),
+             (682, 8192, 2048), (133, 2048, 8192), (133, 8192, 2048)]
+CONV_MAIN = [((b, ci, h, w), (co, ci, 3, 3))
+             for b in (1, 4)
+             for ci, h, w, co in [(128, 114, 20, 128), (128, 58, 11, 256),
+                                  (256, 58, 11, 256), (256, 30, 6, 512),
+                                  (512, 30, 6, 512), (512, 16, 4, 512)]]
+CONV_LOCAL = [((1, 3, 226, 226), (64, 3, 3, 3)),
+              ((1, 64, 226, 226), (64, 64, 3, 3)),
+              ((1, 64, 114, 114), (128, 64, 3, 3))]
+
+dims = st.integers(min_value=1, max_value=20000)
+
+
+def _assert_partition(splits, total):
+    assert 1 <= len(splits) <= _tiles.MAX_SPLIT
+    assert splits[0][0] == 0 and splits[-1][1] == total
+    for (a0, a1), (b0, _) in zip(splits, splits[1:]):
+        assert a1 == b0
+    assert all(a < b for a, b in splits)  # ascending, none empty
+    # one length for every range but the last (the C side takes a chunk)
+    chunk = splits[0][1] - splits[0][0]
+    assert all(b - a == chunk for a, b in splits[:-1])
+    assert splits[-1][1] - splits[-1][0] <= chunk
+
+
+def _assert_plan_fits(plan):
+    assert plan.cluster <= _tiles.MAX_SPLIT
+    assert plan.shared_bytes <= _tiles.SMEM_LIMIT
+    if plan.smem_bytes == 0:  # static shared memory only
+        assert plan.shared_bytes <= 48 * 1024
+    assert plan.threads <= 1024 and plan.grid[1] <= 65535
+
+
+class TestPiecePlan:
+    @settings(max_examples=200, deadline=None)
+    @given(m=dims, b=dims, F1=dims, F2=dims,
+           dtype=st.sampled_from(DTYPES))
+    def test_split_depends_on_regime_and_b_only(self, m, b, F1, F2, dtype):
+        p1, p2 = piece_plan(m, b, F1, dtype), piece_plan(m, b, F2, dtype)
+        assert p1.regime == p2.regime
+        assert p1.splits == p2.splits
+        _assert_partition(p1.splits, b)
+        _assert_plan_fits(p1)
+        _assert_plan_fits(p2)
+
+    @settings(max_examples=200, deadline=None)
+    @given(m=dims, b=dims, F=dims, dtype=st.sampled_from(DTYPES))
+    def test_grid_covers_the_output(self, m, b, F, dtype):
+        p = piece_plan(m, b, F, dtype)
+        if p.regime == "tiled":
+            bm, bn, _, _ = p.tile
+            assert p.splits == ((0, b),)  # one ascending chain per output
+            assert p.grid[0] * bn >= F and p.grid[1] * bm >= m
+            assert (p.grid[0] - 1) * bn < F and (p.grid[1] - 1) * bm < m
+            assert p.smem_bytes == _tiles.tile_smem(p.tile)
+            assert p.threads == _tiles.tile_threads(p.tile)
+        elif p.regime == "gemv":
+            mr, width = p.tile
+            assert m <= mr <= 16 and mr == 1 << (m - 1).bit_length()
+            assert p.config == mr.bit_length() - 1
+            assert p.grid[0] == -(-F // width) * p.cluster
+            assert p.splits == gemv_splits(b)
+        else:
+            assert m <= 16 and b <= 16 and p.splits == ((0, b),)
+
+    @pytest.mark.parametrize("m,b,regime", [
+        (16, 16, "coding"), (1, 16, "coding"), (16, 17, "gemv"),
+        (1, 8192, "gemv"), (17, 16, "tiled"), (17, 17, "tiled"),
+        (682, 2048, "tiled")])
+    def test_regime_boundaries(self, m, b, regime):
+        assert piece_plan(m, b, 100).regime == regime
+
+    @pytest.mark.parametrize("m,b,F", GEMM_MAIN)
+    def test_main_path_shapes_fill_the_card_or_say_why(self, m, b, F):
+        p = piece_plan(m, b, F)
+        if p.blocks >= _tiles.N_SMS:
+            assert p.note == ""
+        else:  # the GEMV regime streams bytes: one wide slab a block
+            assert p.regime == "gemv" and "SMs" in p.note
+
+    def test_small_grid_says_why(self):
+        p = piece_plan(37, 48, 80)
+        assert p.blocks < _tiles.N_SMS and "SMs" in p.note
+
+    @pytest.mark.parametrize("b,n", [(17, 1), (1024, 1), (2048, 2),
+                                     (8191, 8), (8192, 8), (65536, 8)])
+    def test_gemv_split_counts(self, b, n):
+        assert len(gemv_splits(b)) == n
+        _assert_partition(gemv_splits(b), b)
+
+    def test_rejects_an_empty_product(self):
+        with pytest.raises(ValueError):
+            piece_plan(0, 4, 4)
+
+
+conv_x = st.tuples(st.integers(1, 12), st.integers(1, 40),
+                   st.integers(1, 40))
+conv_w = st.tuples(st.integers(1, 600), st.integers(1, 600),
+                   st.sampled_from([1, 3, 5, 7]))
+
+
+class TestConvPlan:
+    @settings(max_examples=200, deadline=None)
+    @given(w=conv_w, x1=conv_x, x2=conv_x, stride=st.sampled_from([1, 2]))
+    def test_split_depends_on_the_weight_only(self, w, x1, x2, stride):
+        c_out, c_in, K = w
+        ws = (c_out, c_in, K, K)
+        plans = [conv_plan((n, c_in, h + K, wd + K), ws, stride)
+                 for n, h, wd in (x1, x2)]
+        assert plans[0].splits == plans[1].splits == conv_splits(ws)
+        _assert_partition(plans[0].splits, c_in * K * K)
+        for p in plans:
+            _assert_plan_fits(p)
+            chunk = p.splits[0][1] - p.splits[0][0]
+            assert p.smem_bytes == _tiles.tile_smem(p.tile) + 4 * chunk
+
+    @settings(max_examples=100, deadline=None)
+    @given(w=conv_w, x=conv_x, stride=st.sampled_from([1, 2]))
+    def test_grid_covers_the_output(self, w, x, stride):
+        c_out, c_in, K = w
+        n, h, wd = x
+        p = conv_plan((n, c_in, h + K, wd + K), (c_out, c_in, K, K), stride)
+        P = n * (h // stride + 1) * (wd // stride + 1)
+        bm, bn, _, _ = p.tile
+        assert p.grid[0] == -(-P // bn) * p.cluster
+        assert p.grid[1] == -(-c_out // bm)
+        assert p.threads == _tiles.tile_threads(p.tile)
+
+    @pytest.mark.parametrize("xs,ws", CONV_MAIN + CONV_LOCAL)
+    def test_main_path_shapes_fill_the_card_or_say_why(self, xs, ws):
+        p = conv_plan(xs, ws, 1)
+        if p.blocks >= _tiles.N_SMS:
+            assert p.note == ""
+        else:
+            assert "SMs" in p.note and f"split {p.cluster} ways" in p.note
+
+    @pytest.mark.parametrize("ws,n", [((64, 3, 3, 3), 1), ((64, 64, 3, 3), 1),
+                                      ((128, 64, 3, 3), 1),
+                                      ((128, 128, 3, 3), 2),
+                                      ((256, 256, 3, 3), 2),
+                                      ((512, 256, 3, 3), 8),
+                                      ((512, 512, 3, 3), 8)])
+    def test_vgg16_split_counts(self, ws, n):
+        assert len(conv_splits(ws)) == n
+
+    def test_folded_pieces_share_the_pieces_split(self):
+        """The functional path folds n pieces into N; the pool launches
+        them one by one: same weight, so the same split and order."""
+        ws = (512, 512, 3, 3)
+        one, folded = conv_plan((1, 512, 30, 6), ws), conv_plan(
+            (10, 512, 30, 6), ws)
+        assert one.splits == folded.splits
+
+
+class TestSourcesAgree:
+    """The Python plans mirror constants of the CUDA sources."""
+
+    def test_tile_table(self):
+        text = (CSRC / "sgemm_mainloop.cuh").read_text()
+        rows = re.findall(r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", text)
+        assert [int(r[0]) for r in rows] == list(range(len(_tiles.TILES)))
+        assert tuple(tuple(int(v) for v in r[1:]) for r in rows) == \
+            _tiles.TILES
+
+    @pytest.mark.parametrize("name,value", [("BK", _tiles.BK),
+                                            ("STAGES", _tiles.STAGES),
+                                            ("APAD", _tiles.APAD),
+                                            ("MAX_SPLIT", _tiles.MAX_SPLIT)])
+    def test_mainloop_constants(self, name, value):
+        text = (CSRC / "sgemm_mainloop.cuh").read_text()
+        assert re.search(rf"constexpr int {name} = (\d+);", text).group(1) \
+            == str(value)
+
+    def test_gemv_constants(self):
+        from repro_torch.kernels import skinny_gemm as sg
+        text = (CSRC / "skinny_gemm.cu").read_text()
+        for name in ("GEMV_THREADS", "GEMV_GROUPS"):
+            got = re.search(rf"constexpr int {name} = (\d+);", text).group(1)
+            assert int(got) == getattr(sg, name)
+
+
+def test_build_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """An edited .cuh renames every library, so a stale build is never
+    loaded; nothing is compiled here."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in _build.SOURCES:
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    hdr = csrc / "shared.cuh"
+    hdr.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    before = {n: _build._target(n)[1].name for n in _build.SOURCES}
+    hdr.write_text("// two\n")
+    after = {n: _build._target(n)[1].name for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    (csrc / "more.cuh").write_text("// a new header\n")
+    assert all(_build._target(n)[1].name != after[n] for n in _build.SOURCES)
+    assert not (tmp_path / "build").exists()  # naming builds nothing

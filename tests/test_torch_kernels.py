@@ -82,10 +82,13 @@ class TestMDSDecode:
 
 
 class TestPieceGemm:
-    @pytest.mark.parametrize("m,b,F", [(37, 48, 80), (17, 5, 33), (5, 64, 7)])
+    @pytest.mark.parametrize("m,b,F", [(37, 48, 80), (17, 5, 33), (5, 64, 7),
+                                       (1, 300, 50), (16, 17, 130),
+                                       (3, 1000, 9)])
     @pytest.mark.parametrize("dtype", DTYPES)
     def test_matches_reference(self, m, b, F, dtype):
-        """Neither dim small: the executor's piece GEMM regime."""
+        """Not both dims small: the executor's piece GEMM — the tiled regime
+        (m > 16) and the split-K GEMV regime (m <= 16 < b)."""
         rng = np.random.default_rng(m * b)
         A = rounded(rng.normal(size=(m, b)) * b ** -0.5, dtype)
         x = rounded(rng.normal(size=(b, F)), dtype)
