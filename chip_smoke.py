@@ -17,15 +17,20 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    (the GEMV regime at t_p 1-16 and its edge t_p = 17, a
                    ragged contraction, ragged and unaligned F, C_O = 7, K
                    in {1, 5, 7}, stride 2, width slices, a ragged SSD chunk,
-                   Mamba2-2.7B's SSD heads, bf16), with times, bounds and
-                   the library yardstick (``torch.matmul`` / ``F.conv2d``,
-                   TF32 off — timed here, never called by the port; the SSD
-                   chunk has none).  Every case is also held against an f64
-                   product (the SSD: an f64 sequential scan).  Bit for bit:
-                   a column block of every GEMM and a row block of every
-                   tiled GEMM equal the same part of the whole, a split-K
-                   GEMM or conv run twice is the same, and 10 conv pieces
-                   stacked into one launch equal the 10 launches of one.
+                   Mamba2-2.7B's SSD heads, SSD widths that are no multiple
+                   of 4, bf16), with times, bounds and the library
+                   yardstick (``torch.matmul`` / ``F.conv2d``, TF32 off —
+                   timed here, never called by the port; the SSD chunk has
+                   none).  Every case is also held against an f64 product
+                   (the SSD: an f64 sequential scan and the composition of
+                   its passes' plain versions), and each of the SSD's four
+                   passes alone against its plain version and f64 at the
+                   headline shape.  Bit for bit: a column block of every
+                   GEMM and a row block of every tiled GEMM equal the same
+                   part of the whole, a split-K GEMM or conv run twice is
+                   the same, every SSD case and pass run twice is the same,
+                   and 10 conv pieces stacked into one launch equal the 10
+                   launches of one.
 3. ``coded_ops`` — ``coded_conv2d`` and ``coded_matmul`` through a
                    ``CodedExecutor`` with one dead worker and one straggler,
                    against the uncoded result.
@@ -45,7 +50,8 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    and a 50x straggler: 8 prompts of 512 tokens and 4 of
                    200, 16 new tokens each.  Prefill and per-step logits are
                    held against the same weights run uncoded, and the SSD
-                   and skinny-GEMM launch counts against the design.
+                   (and each of its passes) and skinny-GEMM launch counts
+                   against the design.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  There is no fallback: no GPU, a kernel
@@ -54,9 +60,9 @@ non-zero exit code and no result line.
 
 ``--phases kernels,zamba2`` runs a subset (for debugging; the result line is
 only printed when every phase ran).  ``--time-kernels CHECKOUT`` only times
-the skinny GEMM and the conv of the port in another checkout (a parent
-commit unpacked beside this one) at this script's f32 cases, so that two
-versions can be held against each other in one run on one card.
+the skinny GEMM, the conv and the SSD scan of the port in another checkout
+(a parent commit unpacked beside this one) at this script's f32 cases, so
+that two versions can be held against each other in one run on one card.
 """
 from __future__ import annotations
 
@@ -73,7 +79,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the roofline.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 SEED = 0
 N_WORKERS = 10
@@ -126,7 +132,10 @@ class Timer:
         for _ in range(self.warmup):
             fn()
         pairs = []
-        for _ in range(3):  # a head start for the host
+        # a head start for the host: ~2.5 ms of device work queued before
+        # the first timed call, so that a wrapper whose host side takes
+        # longer than its kernels is still timed on the device
+        for _ in range(64):
             self.flush.zero_()
         for _ in range(self.iters):
             self.flush.zero_()
@@ -443,7 +452,7 @@ def check_conv_fold(torch, gen, name, xs, ws) -> dict:
 
 def ssd_cases(torch):
     """(name, B, T, H, P, N, chunk, h0, dtype, entry, headline); entry
-    "scan" is one launch for the whole sequence (``ssd_chunk_scan``, what
+    "scan" is one call for the whole sequence (``ssd_chunk_scan``, what
     ``models.ssm.ssd_chunked`` calls), "chunk" the Pallas signature."""
     f32, bf16 = torch.float32, torch.bfloat16
     z = (64, 64, 64)  # Zamba2-1.2B: H = 2 * 2048 / 64, P = 64, N = 64
@@ -463,6 +472,9 @@ def ssd_cases(torch):
          "scan", False),
         ("one chunk L=128, h0", 8, 128, *z, 128, True, f32, "chunk", False),
         ("one chunk L=72, h0", 2, 72, *z, 72, True, f32, "chunk", False),
+        # widths that are no multiple of 4: 4-byte copies, partial tiles
+        ("odd widths P=18 N=10 L=42, h0", 3, 100, 5, 18, 10, 42, True, f32,
+         "scan", False),
     ]
 
 
@@ -513,6 +525,38 @@ def ssd_work(B, T, H, P, N, chunk) -> float:
     return 2.0 * B * macs
 
 
+def ssd_pass_work(B, T, H, P, N, chunk, item, h0) -> dict:
+    """(FLOPs, bytes) of each pass of ``ssd_chunk_scan``: the products over
+    the rows the sequence has (their sum is ``ssd_work``; the state pass
+    adds one multiply-add per state element and chunk), each input read
+    once and each output written once; ``item`` is x's, Bm's and Cm's
+    element size (G, S, the states, dt and A are f32)."""
+    c = -(-T // chunk)
+    cb = st = out = 0
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+        tri = n * (n + 1) // 2
+        cb += tri * N
+        st += H * n * P * N
+        out += H * (tri * P + n * N * P)
+    state = B * c * H * P * N * 4
+    x, bc, y = B * T * H * P * item, B * T * N * item, B * T * H * P * item
+    dt, G, ce = B * T * H * 4 + H * 4, B * c * chunk * chunk * 4, B * c * H * 4
+    h = B * H * P * N * 4
+    return {"cb": (2.0 * B * cb, 2 * bc + G),
+            "states": (2.0 * B * st, x + bc + dt + state + ce),
+            "state_pass": (2.0 * B * c * H * P * N,
+                           2 * state + ce + h * (2 if h0 else 1)),
+            "out": (2.0 * B * out, x + bc + dt + G + state + y)}
+
+
+def bound_3xtf32(n_bytes: float, flops: float) -> float:
+    """The least time at the tensor cores' dense TF32 rate, each product
+    taken three times (3xTF32), or at the memory rate: ms."""
+    return max(n_bytes / PEAK_BYTES_PER_S,
+               3.0 * flops / PEAK_FLOPS["tf32"]) * 1e3
+
+
 def ssd_compare(torch, name, inputs, chunk, refs: dict, got) -> tuple:
     """Hold an SSD result ``got = (y, h)`` against each reference in
     ``refs`` and fail beyond tolerance.  Returns (errors, err/tol ratios,
@@ -554,7 +598,8 @@ def ssd_compare(torch, name, inputs, chunk, refs: dict, got) -> tuple:
 def check_ssd(torch, timer, gen, name, B, T, H, P, N, chunk, h0, dtype,
               entry, headline) -> dict:
     from repro_torch.kernels.ssd_chunk import (ssd_chunk, ssd_chunk_scan,
-                                               ssd_chunk_scan_plain)
+                                               ssd_chunk_scan_passes_plain,
+                                               ssd_chunk_scan_plain, ssd_plan)
 
     x, dt, A, Bm, Cm, h = ssd_inputs(torch, gen, B, T, H, P, N, h0, dtype)
     if entry == "chunk":
@@ -566,6 +611,15 @@ def check_ssd(torch, timer, gen, name, B, T, H, P, N, chunk, h0, dtype,
     plain = lambda: ssd_chunk_scan_plain(x, dt, A, Bm, Cm, h, chunk)
     y, hT = run()
     torch.cuda.synchronize()
+    y2, hT2 = run()
+    require(bool(torch.equal(y, y2)) and bool(torch.equal(hT, hT2)),
+            f"{name}: two runs of the kernels differ")
+    # the wrapper's host side: 20 calls queued, no synchronise between
+    t0 = time.perf_counter()
+    for _ in range(20):
+        run()
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
     py, ph = plain()
     require(tuple(y.shape) == (B, T, H, P) and y.dtype == dtype
             and tuple(hT.shape) == (B, H, P, N) and hT.dtype == torch.float32,
@@ -573,9 +627,11 @@ def check_ssd(torch, timer, gen, name, B, T, H, P, N, chunk, h0, dtype,
     require(bool(torch.isfinite(y.float()).all())
             and bool(torch.isfinite(hT).all()), f"{name}: non-finite")
     fy, fh = ssd_f64_scan(torch, x, dt, A, Bm, Cm, h)
+    qy, qh = ssd_chunk_scan_passes_plain(x, dt, A, Bm, Cm, h, chunk)
     errs, ratios, coef_y, max_cum = ssd_compare(
         torch, name, (x, dt, A, Bm, Cm, h), chunk,
-        {"plain": (py, ph), "f64 scan": (fy, fh)}, (y, hT))
+        {"plain": (py, ph), "f64 scan": (fy, fh),
+         "passes plain": (qy, qh)}, (y, hT))
     flops = ssd_work(B, T, H, P, N, chunk)
     item = x.element_size()
     n_bytes = ((x.numel() + Bm.numel() + Cm.numel() + y.numel()) * item
@@ -593,8 +649,94 @@ def check_ssd(torch, timer, gen, name, B, T, H, P, N, chunk, h0, dtype,
             "err_over_tol": max(ratios.values()), "ratios": ratios,
             "tol_coef": coef_y, "max_cum": max_cum,
             "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
+            "plan": {k: {"grid": list(p.grid), "smem": p.smem,
+                         "blocks_per_sm": p.blocks_per_sm}
+                     for k, p in ssd_plan(B, T, H, P, N, chunk).items()},
             "ms": timer.ms(run), "plain_ms": timer.ms(plain),
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_3xtf32_ms": bound_3xtf32(n_bytes, flops),
+            "host_us_per_call": host_us}
+
+
+def check_ssd_passes(torch, timer, gen) -> list[dict]:
+    """Each pass of the SSD kernel at the headline shape (Zamba2's prefill,
+    B=8, T=512, with h0), the kernel and its plain version given the same
+    inputs (the plain passes' outputs of the pass before), held against the
+    plain pass and the same pass in f64 with ``ssd_compare``'s tolerance."""
+    import repro_torch.kernels.ssd_chunk  # noqa: F401
+    K = sys.modules["repro_torch.kernels.ssd_chunk"]
+
+    B, T, H, P, N, chunk = 8, 512, 64, 64, 64, 128
+    x, dt, A, Bm, Cm, h = ssd_inputs(torch, gen, B, T, H, P, N, True,
+                                     torch.float32)
+    d64 = lambda *ts: [t.double() for t in ts]
+    G = K.ssd_cb_plain(Bm, Cm, chunk)
+    S, ce = K.ssd_states_plain(x, dt, A, Bm, chunk)
+    Hin, hT = K.ssd_state_pass_plain(S, ce, h)
+    y = K.ssd_out_plain(x, dt, A, Cm, G, Hin, chunk)
+    # magnitudes: the same passes of |x|, |Bm|, |Cm|, |h0|
+    aG = K.ssd_cb_plain(Bm.abs(), Cm.abs(), chunk)
+    aS, _ = K.ssd_states_plain(x.abs(), dt, A, Bm.abs(), chunk)
+    aHin, ahT = K.ssd_state_pass_plain(aS, ce, h.abs())
+    ay = K.ssd_out_plain(x.abs(), dt, A, Cm.abs(), aG, aHin, chunk)
+    c = -(-T // chunk)
+    dA = (dt * A).reshape(B, c, chunk, H)
+    max_cum = float(dA.cumsum(2).abs().max())
+    coef = 4.0 * (N + chunk + max_cum) * 2.0 ** -24
+    passes = {
+        "cb": (lambda: K.ssd_cb(Bm, Cm, chunk),
+               lambda: K.ssd_cb_plain(Bm, Cm, chunk),
+               lambda: K.ssd_cb_plain(*d64(Bm, Cm), chunk), (aG,)),
+        "states": (lambda: K.ssd_states(x, dt, A, Bm, chunk),
+                   lambda: K.ssd_states_plain(x, dt, A, Bm, chunk),
+                   lambda: K.ssd_states_plain(*d64(x, dt, A, Bm), chunk),
+                   (aS, ce.abs())),
+        "state_pass": (lambda: K.ssd_state_pass(S, ce, h),
+                       lambda: K.ssd_state_pass_plain(S, ce, h),
+                       lambda: K.ssd_state_pass_plain(*d64(S, ce, h)),
+                       (aHin, ahT)),
+        "out": (lambda: K.ssd_out(x, dt, A, Cm, G, Hin, chunk),
+                lambda: K.ssd_out_plain(x, dt, A, Cm, G, Hin, chunk),
+                lambda: K.ssd_out_plain(*d64(x, dt, A, Cm, G, Hin), chunk),
+                (ay,)),
+    }
+    work = ssd_pass_work(B, T, H, P, N, chunk, 4, True)
+    plan = K.ssd_plan(B, T, H, P, N, chunk)
+    out = []
+    for name, (run, plain, f64, scales) in passes.items():
+        tup = lambda r: r if isinstance(r, tuple) else (r,)
+        got = tup(run())
+        torch.cuda.synchronize()
+        require(bool(all(torch.equal(a, b) for a, b in zip(got, tup(run())))),
+                f"SSD pass {name}: two runs differ")
+        refs = {"plain": tup(plain()), "f64": tup(f64())}
+        errs, ratios = {}, {}
+        for ref_name, ref in refs.items():
+            for i, (a, b, sc) in enumerate(zip(got, ref, scales)):
+                require(a.shape == b.shape and bool(torch.isfinite(a).all()),
+                        f"SSD pass {name}: output {i} shape or non-finite")
+                e = (a.double() - b.double()).abs()
+                key = f"out{i} vs {ref_name}"
+                errs[key] = float(e.max())
+                ratios[key] = float((e / (coef * sc.double() + 1e-30)).max())
+                require(ratios[key] <= 1.0, f"SSD pass {name}: {key} err/tol "
+                                            f"= {ratios[key]:.3g}")
+        flops, n_bytes = work[name]
+        bound_ms, bound_by = bound(n_bytes, flops, "float32")
+        p = plan[name]
+        out.append({
+            "case": f"zamba2 prefill B=8 T=512, h0: pass {name}",
+            "kernel": f"ssd_chunk.{name}", "dtype": "float32",
+            "headline": True,
+            "plan": {"grid": list(p.grid), "threads": p.threads,
+                     "smem": p.smem, "blocks_per_sm": p.blocks_per_sm},
+            "max_abs_err": errs["out0 vs plain"], "errors": errs,
+            "err_over_tol": max(ratios.values()), "ratios": ratios,
+            "tol_coef": coef, "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
+            "ms": timer.ms(run), "plain_ms": timer.ms(plain),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_3xtf32_ms": bound_3xtf32(n_bytes, flops)})
+    return out
 
 
 def phase_kernels(torch) -> list[dict]:
@@ -603,6 +745,7 @@ def phase_kernels(torch) -> list[dict]:
     cases = [check_gemm(torch, timer, gen, *c) for c in gemm_cases(torch)]
     cases += [check_conv(torch, timer, gen, *c) for c in conv_cases(torch)]
     cases += [check_ssd(torch, timer, gen, *c) for c in ssd_cases(torch)]
+    cases += check_ssd_passes(torch, timer, gen)
     folds = [check_conv_fold(torch, gen, f"{n}: 10 pieces folded vs one by "
                              "one", (10,) + xs, ws)
              for n, xs, ws in (("conv4_2", (512, 30, 6), (512, 512, 3, 3)),
@@ -614,8 +757,9 @@ def phase_kernels(torch) -> list[dict]:
 
 
 def time_kernels(torch, checkout: str) -> None:
-    """Only time ``skinny_gemm`` and ``conv2d`` of the ``repro_torch`` under
-    ``checkout/src`` at this script's f32 cases, as the ``kernels`` phase
+    """Only time ``skinny_gemm``, ``conv2d`` and ``ssd_chunk_scan`` of the
+    ``repro_torch`` under ``checkout/src`` at this script's f32 cases
+    (the SSD's whole-sequence ones), as the ``kernels`` phase
     times them, and print one JSON line: run it on two checkouts in one
     call (parent, change, change, parent) to hold two versions of the
     kernels against each other on one card.  The wrappers' signatures are
@@ -623,6 +767,7 @@ def time_kernels(torch, checkout: str) -> None:
     import repro_torch
     from repro_torch.kernels.conv2d import conv2d
     from repro_torch.kernels.skinny_gemm import skinny_gemm
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
 
     require(os.path.realpath(repro_torch.__file__).startswith(
         os.path.realpath(checkout)), f"repro_torch not from {checkout}")
@@ -646,6 +791,13 @@ def time_kernels(torch, checkout: str) -> None:
         w = _rand(torch, gen, ws, dtype, (ws[1] * ws[2] * ws[3]) ** -0.5)
         rows.append({"case": name, "kernel": "conv2d",
                      "ms": timer.ms(lambda: conv2d(x, w, stride))})
+    for name, B, T, H, P, N, chunk, h0, dtype, entry, _ in ssd_cases(torch):
+        if dtype != torch.float32 or entry != "scan":
+            continue
+        x, dt, A, Bm, Cm, h = ssd_inputs(torch, gen, B, T, H, P, N, h0,
+                                         dtype)
+        rows.append({"case": name, "kernel": "ssd_chunk", "ms": timer.ms(
+            lambda: ssd_chunk_scan(x, dt, A, Bm, Cm, h, chunk))})
     emit({"phase": "time_kernels", "source": os.path.dirname(
         repro_torch.__file__), "nvidia_smi": nvidia_smi_line(),
           "cases": rows})
@@ -766,6 +918,23 @@ def device_time_of(prof) -> dict:
             "host_ops_ms": sum(r[0] for r in host) / 1e3,
             "host_top": [{"name": k[:60], "ms": t / 1e3, "calls": c}
                          for t, k, c in host[:6]]}
+
+
+def device_rows_named(prof, part: str) -> list[dict]:
+    """The profile's device-kernel rows whose name holds ``part``."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA \
+                or part not in ev.key:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        rows.append({"name": ev.key[:60], "ms": float(t) / 1e3,
+                     "calls": int(ev.count)})
+    return sorted(rows, key=lambda r: -r["ms"])
 
 
 def t_compute_stats(values: list[float]) -> dict:
@@ -937,9 +1106,9 @@ ZAMBA2_K = 6
 def zamba2_expected(cfg, n_live: int) -> dict:
     """Launches and coded runs the design implies for the two buckets.
 
-    SSD: one ``ssd_chunk_scan`` launch per Mamba2 layer per prefill (the
-    chunk loop runs inside the kernel); decode steps run the recurrence in
-    plain torch.  Coded GEMMs: each of the shared block's calls runs 3 FFN
+    SSD: one ``ssd_chunk_scan`` call per Mamba2 layer per prefill, which
+    launches each of the kernel's four passes once; decode steps run the
+    recurrence in plain torch.  Coded GEMMs: each of the shared block's calls runs 3 FFN
     GEMMs, coded when the step has >= k tokens (a B=4 decode step has 4 <
     6: master-local); each coded run launches the skinny GEMM for the
     encode, for each live worker's piece (on the virtual clock every live
@@ -1013,12 +1182,15 @@ def phase_zamba2(torch) -> dict:
         # ---- the counted run starts here ----------------------------------
         skinny_gemm.launches = 0
         ssd_chunk.launches = 0
+        ssd_chunk.pass_launches = dict.fromkeys(ssd_chunk.pass_launches, 0)
         t0 = time.perf_counter()
         out = eng.generate(reqs)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = {"skinny_gemm": skinny_gemm.launches,
                   "ssd_chunk": ssd_chunk.launches}
+        counts.update({f"ssd_chunk.{k}": n
+                       for k, n in ssd_chunk.pass_launches.items()})
         # ---- the counted run ends here ------------------------------------
         ex.on_report = None
         eng._bind_steps()
@@ -1028,6 +1200,10 @@ def phase_zamba2(torch) -> dict:
         require(counts["ssd_chunk"] == want_counts["ssd_chunk"],
                 f"{counts['ssd_chunk']} SSD launches, the design implies "
                 f"{want_counts['ssd_chunk']}")
+        for k in ssd_chunk.pass_launches:  # every call runs the 4 passes
+            require(counts[f"ssd_chunk.{k}"] == want_counts["ssd_chunk"],
+                    f"{counts[f'ssd_chunk.{k}']} launches of SSD pass {k}, "
+                    f"the design implies {want_counts['ssd_chunk']}")
         require(counts["skinny_gemm"] == want_counts["skinny_gemm"],
                 f"{counts['skinny_gemm']} skinny-GEMM launches, the design "
                 f"implies {want_counts['skinny_gemm']}")
@@ -1049,6 +1225,7 @@ def phase_zamba2(torch) -> dict:
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
         profile = device_time_of(prof)
+        ssd_rows = device_rows_named(prof, "ssd_")
         profile["wall_ms"] = prof_wall_ms
         profile["idle_share"] = max(0.0, 1.0 - profile["device_ms"]
                                     / prof_wall_ms)
@@ -1168,7 +1345,11 @@ def phase_zamba2(torch) -> dict:
           "t_complete": sorted({r.t_complete for r in reports}),
           "steps_checked": len(steps), "tokens_checked": checked,
           "near_ties": near_ties, "worst_logit_err_over_tol": worst,
-          "layer0_ssd": layer_ssd, "profile": profile})
+          "layer0_ssd": layer_ssd,
+          "ssd_passes": {"launches": {k: counts[f"ssd_chunk.{k}"]
+                                      for k in ssd_chunk.pass_launches},
+                         "device_rows": ssd_rows},
+          "profile": profile})
     return counts
 
 
@@ -1188,6 +1369,10 @@ KERNEL_META = {
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:66"},
 }
+# the SSD kernel's four passes, each a kernel of the same source
+KERNEL_META.update({
+    f"ssd_chunk.{p}": dict(KERNEL_META["ssd_chunk"])
+    for p in ("cb", "states", "state_pass", "out")})
 
 
 def kernels_line(cases: list[dict], by_path: dict) -> dict:
@@ -1208,6 +1393,8 @@ def kernels_line(cases: list[dict], by_path: dict) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            **({"bound_3xtf32_ms": head["bound_3xtf32_ms"]}
+               if "bound_3xtf32_ms" in head else {}),
             "cases_checked": len(mine),
             "worst_err_over_tol": max(c["err_over_tol"] for c in mine)})
     return {"kernels": out}
@@ -1218,9 +1405,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
     ap.add_argument("--time-kernels", metavar="CHECKOUT",
-                    help="only time the skinny GEMM and the conv of the port "
-                         "under CHECKOUT/src at this script's f32 cases (one "
-                         "JSON line, no result line)")
+                    help="only time the skinny GEMM, the conv and the SSD "
+                         "scan of the port under CHECKOUT/src at this "
+                         "script's f32 cases (one JSON line, no result line)")
     args = ap.parse_args()
     if args.time_kernels:
         sys.path.insert(0, os.path.join(os.path.abspath(args.time_kernels),

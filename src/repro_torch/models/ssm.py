@@ -9,8 +9,9 @@ Implements the SSD algorithm of Mamba2 [arXiv:2405.21060] with G=1
 
 Full sequences use the chunked dual form.  Unlike the reference, whose
 ``ssd_chunked`` is plain jnp, the port's runs every chunk through the SSD
-kernel (``kernels/ssd_chunk.py``): one launch per call on a CUDA tensor,
-the plain version on a CPU tensor.  Decode is a single recurrence step on a
+kernel (``kernels/ssd_chunk.py``): one ``ssd_chunk`` launch (four
+chunk-parallel passes) per call on a CUDA tensor, the plain version on a
+CPU tensor.  Decode is a single recurrence step on a
 carried (B, H, P, N) state, in plain torch as in the reference.
 """
 from __future__ import annotations
