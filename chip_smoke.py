@@ -29,11 +29,17 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    GEMM and a row block of every tiled GEMM equal the same
                    part of the whole, a split-K GEMM or conv run twice is
                    the same, every SSD case and pass run twice is the same,
-                   and 10 conv pieces stacked into one launch equal the 10
-                   launches of one.
+                   10 conv pieces stacked into one launch equal the 10
+                   launches of one, and the stacked piece GEMM
+                   (``piece_gemm_stacked``, 10 pieces of t_p in {1, 2, 16,
+                   17, 133, 682} rows at both Zamba2 weight shapes) equals
+                   its 10 single launches, timed beside them.
 3. ``coded_ops`` — ``coded_conv2d`` and ``coded_matmul`` through a
                    ``CodedExecutor`` with one dead worker and one straggler,
-                   against the uncoded result.
+                   against the uncoded result; the same ops on a
+                   ``MeshExecutor`` with the same faults, bit for bit equal
+                   to the pool's, a graph replay equal to the eager program,
+                   and every scheme x fault x op at small shapes.
 4. ``vgg16``     — the main path: VGG16 at 224x224, f32, seeded random
                    weights, served through ``vgg16_forward`` on a worker pool
                    (requests of batch 1, 4, 1 on the virtual clock, two
@@ -52,6 +58,15 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    held against the same weights run uncoded, and the SSD
                    (and each of its passes) and skinny-GEMM launch counts
                    against the design.
+6. ``zamba2_mesh`` — the same requests on the same weights served by
+                   ``Engine(coded=(10, 6), executor=MeshExecutor(dead=(1,),
+                   stragglers=(2,)))``: every coded GEMM one CUDA graph
+                   replay (encode, the 10 pieces in one stacked launch,
+                   decode).  Tokens equal the ``zamba2`` phase's, logits
+                   are held against its uncoded ones; programs, graphs and
+                   launches against the design; runtime calls
+                   (``cudaStreamSynchronize`` fewer than the pool's), device
+                   time, idle share, TTFT and ms/token beside the pool's.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  There is no fallback: no GPU, a kernel
@@ -59,7 +74,7 @@ that does not build or launch, or any failed check ends the run with a
 non-zero exit code and no result line.
 
 ``--phases kernels,zamba2`` runs a subset (for debugging; the result line is
-only printed when every phase ran).  ``--time-kernels CHECKOUT`` only times
+only printed when every phase ran; ``zamba2_mesh`` needs ``zamba2``).  ``--time-kernels CHECKOUT`` only times
 the skinny GEMM, the conv and the SSD scan of the port in another checkout
 (a parent commit unpacked beside this one) at this script's f32 cases, so
 that two versions can be held against each other in one run on one card.
@@ -83,7 +98,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 SEED = 0
 N_WORKERS = 10
-ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16", "zamba2")
+ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16", "zamba2",
+              "zamba2_mesh")
 
 
 def emit(obj: dict) -> None:
@@ -339,6 +355,66 @@ def check_gemm(torch, timer, gen, name, A_src, F, dtype, headline,
             "ms": timer.ms(lambda: skinny_gemm(A, X)),
             "plain_ms": timer.ms(lambda: skinny_gemm_plain(A, X)),
             "library_ms": timer.ms(lambda: torch.matmul(A, X)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# the one-program backend's piece GEMM: n = 10 pieces of t_p rows in one
+# launch, at Zamba2's two FFN weight shapes (d_in, d_out)
+STACKED_T_P = (1, 2, 16, 17, 133, 682)
+STACKED_W = ((2048, 8192), (8192, 2048))
+
+
+def check_stacked(torch, timer, gen, t_p, b, F) -> dict:
+    """``piece_gemm_stacked`` at n = 10: every piece bit for bit equal to
+    its own ``skinny_gemm`` launch, within tolerance of the plain version
+    and of an f64 product; timed beside the ten single launches and
+    ``torch.matmul`` on the stacked rows."""
+    from repro_torch.kernels.skinny_gemm import (piece_gemm_stacked,
+                                                 piece_gemm_stacked_plain,
+                                                 skinny_gemm, stacked_plan)
+
+    n = N_WORKERS
+    name = f"stacked {n}x{t_p}x{b}x{F}"
+    P = _rand(torch, gen, (n, t_p, b), torch.float32, b ** -0.5)
+    X = _rand(torch, gen, (b, F), torch.float32)
+    plan = stacked_plan(n, t_p, b, F)
+    got = piece_gemm_stacked(P, X)
+    singles = [skinny_gemm(P[i], X) for i in range(n)]
+    torch.cuda.synchronize()
+    require(got.shape == (n, t_p, F), f"{name}: shape")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+    for i, one in enumerate(singles):
+        require(bool(torch.equal(got[i], one)),
+                f"{name}: piece {i} differs from its own launch")
+    want = piece_gemm_stacked_plain(P, X)
+    S = P.abs() @ X.abs()
+    coef = 2.0 * (b + 2) * 2.0 ** -24
+    err = (got - want).abs()
+    ratio = float((err / (coef * S + 1e-30)).max())
+    require(ratio <= 1.0, f"{name}: kernel differs from plain version, "
+                          f"err/tol = {ratio:.3g}")
+    err64 = (got.double() - P.double() @ X.double()).abs()
+    ratio64 = float((err64 / (coef * S.double() + 1e-30)).max())
+    require(ratio64 <= 1.0, f"{name}: kernel differs from the f64 product, "
+                            f"err/tol = {ratio64:.3g}")
+    rows = P.reshape(n * t_p, b)
+    n_bytes = (n * t_p * b + b * F + n * t_p * F) * 4
+    bound_ms, bound_by = bound(n_bytes, 2.0 * n * t_p * b * F, "float32")
+    return {"case": name, "kernel": "piece_gemm_stacked",
+            "shape": [n, t_p, b, F], "dtype": "float32",
+            "headline": (t_p, b, F) == (1, 2048, 8192),
+            "plan": {"regime": plan.regime, "tile": list(plan.tile),
+                     "splits": plan.cluster, "row_groups": plan.grid[1]
+                     if plan.regime != "tiled" else 1,
+                     "blocks": plan.blocks},
+            "pieces_bit_identical": n,
+            "max_abs_err": float(err.max()), "tol_coef": coef,
+            "err_over_tol": ratio, "max_abs_err_vs_f64": float(err64.max()),
+            "ms": timer.ms(lambda: piece_gemm_stacked(P, X)),
+            "ten_launches_ms": timer.ms(
+                lambda: [skinny_gemm(P[i], X) for i in range(n)]),
+            "plain_ms": timer.ms(lambda: piece_gemm_stacked_plain(P, X)),
+            "library_ms": timer.ms(lambda: torch.matmul(rows, X)),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -743,6 +819,8 @@ def phase_kernels(torch) -> list[dict]:
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [check_gemm(torch, timer, gen, *c) for c in gemm_cases(torch)]
+    cases += [check_stacked(torch, timer, gen, t_p, b, F)
+              for b, F in STACKED_W for t_p in STACKED_T_P]
     cases += [check_conv(torch, timer, gen, *c) for c in conv_cases(torch)]
     cases += [check_ssd(torch, timer, gen, *c) for c in ssd_cases(torch)]
     cases += check_ssd_passes(torch, timer, gen)
@@ -822,7 +900,9 @@ def make_executor(clock):
 def phase_coded_ops(torch) -> None:
     from repro_torch.core import (ConvSpec, MDSScheme, ReplicationScheme,
                                   coded_conv2d, coded_matmul, conv2d)
-    from repro_torch.dist import FakeClock
+    from repro_torch.dist import FakeClock, MeshExecutor
+    from repro_torch.dist.backend import CodedOp
+    from repro_torch.kernels.skinny_gemm import piece_gemm_stacked
     import numpy as np
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -836,15 +916,50 @@ def phase_coded_ops(torch) -> None:
     rows = []
     for code in (MDSScheme.make(N_WORKERS, 6), ReplicationScheme.make(N_WORKERS)):
         ex = make_executor(FakeClock())
+        mx = MeshExecutor(dead=(1,), stragglers=(2,))
         try:
             got_c = coded_conv2d(x, w, code, spec, executor=ex)
             rep_c = ex.last_report
             got_m = coded_matmul(xm, wm, code, executor=ex)
             rep_m = ex.last_report
+            # the one-program backend, the same fault pattern: the same
+            # subset and the same bytes
+            mesh_c = coded_conv2d(x, w, code, spec, executor=mx)
+            sub_c = mx.last_report.subset
+            s0 = piece_gemm_stacked.launches
+            mesh_m = coded_matmul(xm, wm, code, executor=mx)
+            sub_m = mx.last_report.subset
+            mesh_m2 = coded_matmul(xm, wm, code, executor=mx)  # a replay
+            stacked = piece_gemm_stacked.launches - s0
+            # a replay of the captured graph against the eager program
+            t_p = 1030 // code.k
+            op = CodedOp("matmul", code, xm[: code.k * t_p].reshape(
+                code.k, t_p, -1), wm)
+            eager = MeshExecutor.program(op, tuple(sub_m), op.x)
+            replay = mx.run_op(op)
             torch.cuda.synchronize()
         finally:
             ex.close()
-        for op, got, want, rep, R in (
+            mx.close()
+        require(sub_c == rep_c.subset and sub_m == rep_m.subset,
+                f"{code}: the mesh consumed {sub_c}/{sub_m}, the pool "
+                f"{rep_c.subset}/{rep_m.subset}")
+        require(bool(torch.equal(mesh_c, got_c)),
+                f"{code}: mesh conv differs from the pool's bits")
+        require(bool(torch.equal(mesh_m, got_m))
+                and bool(torch.equal(mesh_m2, got_m)),
+                f"{code}: mesh matmul differs from the pool's bits")
+        require(bool(torch.equal(replay, eager)),
+                f"{code}: a graph replay differs from the eager program")
+        # the first matmul run calls the stacked wrapper twice: its eager
+        # warm-up and its capture; the second run is a replay, which calls
+        # no wrapper (the replay's bits are checked against the eager
+        # program above)
+        require(stacked == 2 and mx.graph_count == 2
+                and mx.replay_count == 4,
+                f"{code}: {stacked} stacked wrapper calls, {mx.graph_count} "
+                f"graphs, {mx.replay_count} replays (design 2, 2, 4)")
+        for op_name, got, want, rep, R in (
                 ("conv2d conv4_2", got_c, y_conv, rep_c, 512 * 9),
                 ("matmul 1030x1024x4096", got_m, y_mm, rep_m, 1024)):
             # coded vs uncoded: the pieces carry the f32 roundoff of a
@@ -858,16 +973,70 @@ def phase_coded_ops(torch) -> None:
                 amp = float(D * G)
             tol = amp * R ** 0.5 * 2.0 ** -24 * float(want.abs().max())
             err = float((got - want).abs().max())
-            require(got.shape == want.shape, f"{op}: shape")
-            require(err <= tol, f"coded {op} under {code}: err {err} > {tol}")
-            rows.append({"op": op, "scheme": code.scheme_name, "n": code.n,
-                         "k": code.k, "max_abs_err": err, "tol": tol,
-                         "decode_amplification": amp,
+            require(got.shape == want.shape, f"{op_name}: shape")
+            require(err <= tol, f"coded {op_name} under {code}: err {err} > "
+                                f"{tol}")
+            rows.append({"op": op_name, "scheme": code.scheme_name,
+                         "n": code.n, "k": code.k, "max_abs_err": err,
+                         "tol": tol, "decode_amplification": amp,
                          "subset": rep.subset, "redispatched": rep.redispatched,
                          "failures": rep.failures,
-                         "t_complete": rep.t_complete})
+                         "t_complete": rep.t_complete,
+                         "mesh_bit_identical": True})
     emit({"phase": "coded_ops", "faults": "dead={1}, straggler={2: 50x}",
-          "clock": "FakeClock + DeterministicDelay(1.0)", "ops": rows})
+          "clock": "FakeClock + DeterministicDelay(1.0)", "ops": rows,
+          "mesh": "MeshExecutor(dead=(1,), stragglers=(2,)): same subset, "
+                  "same bytes; a graph replay equals the eager program",
+          "mesh_matrix": mesh_matrix(torch)})
+
+
+def mesh_matrix(torch) -> dict:
+    """Every scheme x {no fault, dead 1, straggler 2} x {matmul, conv} at
+    small shapes, n = 5: the mesh's graph replay bit for bit equal to the
+    pool's result, from the same subset."""
+    from repro_torch.core import (ConvSpec, coded_conv2d, coded_matmul,
+                                  get_scheme, scheme_names)
+    from repro_torch.dist import (CodedExecutor, DeterministicDelay,
+                                  FakeClock, FaultPlan, MeshExecutor)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    xm = _rand(torch, gen, (13, 8), torch.float32)
+    wm = _rand(torch, gen, (8, 16), torch.float32)
+    spec = ConvSpec(c_in=3, c_out=4, h_in=12, w_in=26, kernel=3, stride=1,
+                    batch=2)
+    xc = _rand(torch, gen, (2, 3, 12, 26), torch.float32)
+    wc = _rand(torch, gen, (4, 3, 3, 3), torch.float32)
+    faults = {"none": ({}, {}),
+              "dead 1": ({"dead": frozenset({1})}, {"dead": (1,)}),
+              "straggler 2": ({"straggler": {2: 50.0}}, {"stragglers": (2,)})}
+    cells = 0
+    for name in scheme_names():
+        cls = get_scheme(name)
+        code = cls.make(5, 3) if name in ("mds", "lt") else cls.make(5)
+        for label, (fp, mk) in faults.items():
+            for op, run in (
+                    ("matmul", lambda ex: coded_matmul(xm, wm, code,
+                                                       executor=ex)),
+                    ("conv2d", lambda ex: coded_conv2d(xc, wc, code, spec,
+                                                       executor=ex))):
+                ex = CodedExecutor(code.n, clock=FakeClock(),
+                                   delay_model=DeterministicDelay(1.0),
+                                   fault_plan=FaultPlan(**fp))
+                mx = MeshExecutor(**mk)
+                try:
+                    got_t, got_m = run(ex), run(mx)
+                    subs = (ex.last_report.subset, mx.last_report.subset)
+                    torch.cuda.synchronize()
+                finally:
+                    ex.close()
+                    mx.close()
+                require(subs[0] == subs[1] and bool(torch.equal(got_t, got_m)),
+                        f"mesh vs pool, {name} {label} {op}: subsets {subs}, "
+                        "or other bytes")
+                cells += 1
+    return {"cells": cells, "bit_identical": cells,
+            "shapes": "matmul 13x8 @ 8x16, conv (2,3,12,26) x (4,3,3,3), "
+                      "n = 5"}
 
 
 # ---------------------------------------------------------------------------
@@ -937,9 +1106,36 @@ def device_rows_named(prof, part: str) -> list[dict]:
     return sorted(rows, key=lambda r: -r["ms"])
 
 
+def runtime_calls(prof) -> dict:
+    """The profile's CUDA runtime calls on the host (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, ``cudaStreamSynchronize``, ...): calls and ms."""
+    from torch.autograd import DeviceType
+
+    return {ev.key: {"calls": int(ev.count),
+                     "ms": float(ev.self_cpu_time_total) / 1e3}
+            for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) != DeviceType.CUDA
+            and ev.key.startswith("cuda")}
+
+
+def latency_rows(buckets, by_id) -> tuple:
+    """TTFT per bucket (from ``generate``'s entry and from the previous
+    bucket's end) and decode ms per token, from the completions."""
+    ttft, own, per_tok, prev_end = {}, {}, {}, 0.0
+    for ids, T, new in buckets:
+        first = max(by_id[j].first_token_s for j in ids)
+        last = max(by_id[j].latency_s for j in ids)
+        ttft[T] = first * 1e3
+        own[T] = (first - prev_end) * 1e3
+        per_tok[T] = (last - first) / max(new - 1, 1) * 1e3
+        prev_end = last
+    return ttft, own, per_tok
+
+
 def t_compute_stats(values: list[float]) -> dict:
-    """Median, p90, max and sum in ms of real-clock piece compute times
-    (each from the piece's launch to its own stream's synchronise)."""
+    """Median, p90, max and sum in ms of real-clock times: a piece's
+    compute (from its launch to its own stream's synchronise), or a mesh
+    run's wall (from its replay to its synchronise)."""
     v = sorted(values)
     if not v:
         return {"pieces": 0}
@@ -1103,6 +1299,24 @@ ZAMBA2_BUCKETS = ((8, 512, 16), (4, 200, 16))  # requests, prompt, new tokens
 ZAMBA2_K = 6
 
 
+def record_steps(eng) -> list:
+    """Wrap the engine's prefill and decode steps so that each step's
+    last-position logits are appended to the returned list (until
+    ``eng._bind_steps()`` unwraps them)."""
+    steps, vocab = [], eng.cfg.vocab
+
+    def recording(fn):
+        def wrapped(*args):
+            logits, cache = fn(*args)
+            steps.append(logits[:, 0, :vocab])
+            return logits, cache
+        return wrapped
+
+    eng._prefill, eng._decode = (recording(eng._prefill),
+                                 recording(eng._decode))
+    return steps
+
+
 def zamba2_expected(cfg, n_live: int) -> dict:
     """Launches and coded runs the design implies for the two buckets.
 
@@ -1164,17 +1378,7 @@ def phase_zamba2(torch) -> dict:
         eng = Engine(cfg, params, coded=(N_WORKERS, ZAMBA2_K), executor=ex)
         # the counted run's per-step logits, recorded as the engine makes
         # them (the check below holds them against the uncoded model)
-        steps = []
-
-        def recording(fn):
-            def wrapped(*args):
-                logits, cache = fn(*args)
-                steps.append(logits[:, 0, : cfg.vocab])
-                return logits, cache
-            return wrapped
-
-        eng._prefill, eng._decode = (recording(eng._prefill),
-                                     recording(eng._decode))
+        steps = record_steps(eng)
         reports = []
         ex.on_report = reports.append
         torch.cuda.synchronize()
@@ -1225,6 +1429,7 @@ def phase_zamba2(torch) -> dict:
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
         profile = device_time_of(prof)
+        profile["runtime_calls"] = runtime_calls(prof)
         ssd_rows = device_rows_named(prof, "ssd_")
         profile["wall_ms"] = prof_wall_ms
         profile["idle_share"] = max(0.0, 1.0 - profile["device_ms"]
@@ -1238,6 +1443,7 @@ def phase_zamba2(torch) -> dict:
     # ---- coded vs uncoded, teacher-forced on the coded tokens ------------
     by_id = {c.rid: c for c in out}
     worst, near_ties, checked, i = 0.0, 0, 0, 0
+    refs = []  # the uncoded logits of each served step, for zamba2_mesh
     for ids, T, new in buckets:
         toks = torch.as_tensor(np.stack([reqs[j].prompt for j in ids]),
                                device="cuda")
@@ -1248,6 +1454,7 @@ def phase_zamba2(torch) -> dict:
                 nxt = torch.as_tensor(gen[:, s - 1: s], device="cuda")
                 logits, cache = M.decode_step(cfg, params, cache, token=nxt)
             ref = logits[:, 0, : cfg.vocab]
+            refs.append(ref)
             got = steps[i]
             i += 1
             tol = 1e-3 * float(ref.abs().max())
@@ -1315,14 +1522,7 @@ def phase_zamba2(torch) -> dict:
         "err_over_tol": ratios,
         "max_abs_y": float(yp.abs().max())}
 
-    ttft, own, per_tok, prev_end = {}, {}, {}, 0.0
-    for ids, T, new in buckets:
-        first = max(by_id[j].first_token_s for j in ids)
-        last = max(by_id[j].latency_s for j in ids)
-        ttft[T] = first * 1e3
-        own[T] = (first - prev_end) * 1e3
-        per_tok[T] = (last - first) / max(new - 1, 1) * 1e3
-        prev_end = last
+    ttft, own, per_tok = latency_rows(buckets, by_id)
     emit({"phase": "zamba2",
           "model": "zamba2-1.2b, 38 Mamba2 layers, d_model 2048, 64 SSD "
                    "heads, shared attention+FFN after 6 of them, f32, "
@@ -1350,6 +1550,282 @@ def phase_zamba2(torch) -> dict:
                                       for k in ssd_chunk.pass_launches},
                          "device_rows": ssd_rows},
           "profile": profile})
+    threaded = {"wall_s": wall_s, "ttft_ms": ttft,
+                "decode_ms_per_token": per_tok, "coded_runs": runs,
+                "launches": counts, "profile": profile}
+    return counts, {"cfg": cfg, "params": params, "reqs": reqs,
+                    "buckets": buckets, "out": out, "steps": steps,
+                    "refs": refs, "threaded": threaded}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the same Zamba2 serving on the one-program backend
+# ---------------------------------------------------------------------------
+
+def zamba2_mesh_expected(cfg) -> dict:
+    """Programs, graphs and launches the mesh's design implies for the two
+    buckets: a program per (token count, weight shape) of the coded steps
+    (w_in and w_gate share one), a CUDA graph per (token count, weight).
+    Each graph's program runs once eagerly and once under capture, each
+    calling the stacked piece wrapper once and the skinny GEMM's twice (an
+    MDS encode and a decode); every coded run is then one replay, whose
+    device kernels are one piece kernel and two coding kernels."""
+    runs = zamba2_expected(cfg, N_WORKERS)["coded_runs"]
+    t_ps = set()
+    for n_req, T, new in ZAMBA2_BUCKETS:
+        if n_req * T >= ZAMBA2_K:
+            t_ps.add(n_req * T // ZAMBA2_K)
+        if new > 1 and n_req >= ZAMBA2_K:
+            t_ps.add(n_req // ZAMBA2_K)
+    graphs = 3 * len(t_ps)
+    ssd = cfg.n_layers * len(ZAMBA2_BUCKETS)
+    return {"coded_runs": runs, "programs": 2 * len(t_ps), "graphs": graphs,
+            "wrapper_calls_first_run": {
+                "piece_gemm_stacked": 2 * graphs,
+                "skinny_gemm": 4 * graphs, "ssd_chunk": ssd},
+            "launches_replayed_run": {
+                "piece_gemm_stacked": runs, "skinny_gemm": 2 * runs,
+                "ssd_chunk": ssd}}
+
+
+def zero_launch_counters() -> None:
+    from repro_torch.kernels.conv2d import conv2d
+    from repro_torch.kernels.skinny_gemm import piece_gemm_stacked, skinny_gemm
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+
+    skinny_gemm.launches = 0
+    piece_gemm_stacked.launches = 0
+    conv2d.launches = 0
+    ssd_chunk.launches = 0
+    ssd_chunk.pass_launches = dict.fromkeys(ssd_chunk.pass_launches, 0)
+
+
+def read_launch_counters() -> dict:
+    from repro_torch.kernels.conv2d import conv2d
+    from repro_torch.kernels.skinny_gemm import piece_gemm_stacked, skinny_gemm
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+
+    counts = {"skinny_gemm": skinny_gemm.launches,
+              "piece_gemm_stacked": piece_gemm_stacked.launches,
+              "conv2d": conv2d.launches, "ssd_chunk": ssd_chunk.launches}
+    counts.update({f"ssd_chunk.{k}": n
+                   for k, n in ssd_chunk.pass_launches.items()})
+    return counts
+
+
+def phase_zamba2_mesh(torch, z: dict) -> dict:
+    """The zamba2 phase's requests on the mesh.  A replay calls no kernel
+    wrapper, so the launches this phase reports for the coded GEMMs are the
+    device's: kernel instances in the profiled run's device rows (every
+    coded run of it a replay), beside its ``cudaGraphLaunch`` count."""
+    import numpy as np
+    from repro_torch.dist import MeshExecutor
+    from repro_torch.serving import Engine
+
+    cfg, params, reqs, buckets = z["cfg"], z["params"], z["reqs"], z["buckets"]
+    want = zamba2_mesh_expected(cfg)
+    n_tokens = sum(r.max_new for r in reqs)
+    ex = MeshExecutor(dead=(1,), stragglers=(2,))
+    # the same program run eagerly on every call (no graph): the yardstick
+    # that says what the graphs themselves buy
+    eager = MeshExecutor(dead=(1,), stragglers=(2,))
+    eager._replay = lambda op, subset, key: MeshExecutor.program(
+        op, subset, op.x)
+
+    def timed(executor, label):
+        eng.executor = executor
+        reps = []
+        executor.on_report = reps.append
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        executor.on_report = None
+        require(all(np.array_equal(a.tokens, b.tokens)
+                    for a, b in zip(out, got)),
+                f"zamba2_mesh {label}: other tokens than the first mesh run")
+        ttft, own, per_tok = latency_rows(buckets, {c.rid: c for c in got})
+        return {"executor": label, "wall_s": wall,
+                "tokens_per_s": n_tokens / wall, "ttft_ms": ttft,
+                "ttft_own_bucket_ms": own, "decode_ms_per_token": per_tok,
+                "run_wall_ms": t_compute_stats([r.wall_s for r in reps])}
+
+    def profiled(executor):
+        from torch.profiler import ProfilerActivity, profile as tprof
+
+        eng.executor = executor
+        r0 = executor.run_count
+        torch.cuda.synchronize()
+        zero_launch_counters()
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        wrappers = read_launch_counters()
+        require(all(np.array_equal(a.tokens, b.tokens)
+                    for a, b in zip(out, got)),
+                "a profiled mesh run gave other tokens")
+        profile = device_time_of(prof)
+        profile["runtime_calls"] = runtime_calls(prof)
+        profile["wall_ms"] = wall_ms
+        profile["idle_share"] = max(0.0, 1.0 - profile["device_ms"] / wall_ms)
+        profile["piece_rows"] = device_rows_named(prof, "piece_")
+        profile["coding_rows"] = device_rows_named(prof, "coding_gemm")
+        return profile, wrappers, executor.run_count - r0
+
+    try:
+        eng = Engine(cfg, params, coded=(N_WORKERS, ZAMBA2_K), executor=ex)
+        steps = record_steps(eng)
+        reports = []
+        ex.on_report = reports.append
+        torch.cuda.synchronize()
+
+        # ---- the first run: every program warmed up and captured ---------
+        zero_launch_counters()
+        t0 = time.perf_counter()
+        out = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        first_calls = read_launch_counters()
+        ex.on_report = None
+        eng._bind_steps()
+        built = {"programs": ex.compile_count, "graphs": ex.graph_count,
+                 "replays": ex.replay_count, "runs": ex.run_count,
+                 "dispatches": ex.pool.dispatch_count}
+        require(first_calls["conv2d"] == 0,
+                f"{first_calls['conv2d']} conv launches")
+        for k, n in first_calls.items():
+            if k == "conv2d":
+                continue
+            design = want["wrapper_calls_first_run"][k.split(".")[0]]
+            require(n == design, f"zamba2_mesh first run: {n} {k} wrapper "
+                                 f"calls, the design implies {design}")
+        require(built["runs"] == len(reports) == built["replays"]
+                == want["coded_runs"],
+                f"zamba2_mesh: {built}, {len(reports)} reports, the design "
+                f"implies {want['coded_runs']} runs, each a replay")
+        require(built["programs"] == want["programs"]
+                and built["graphs"] == want["graphs"],
+                f"zamba2_mesh: {built}, the design implies "
+                f"{want['programs']} programs and {want['graphs']} graphs")
+        for r in reports:
+            require(1 not in r.subset and 2 not in r.subset,
+                    f"a coded run used a faulty lane: subset {r.subset}")
+
+        # ---- turns, every graph captured: graph, eager, eager, graph -----
+        timed(eager, "eager (warm-up)")
+        turns = [timed(ex, "graph"), timed(eager, "eager"),
+                 timed(eager, "eager"), timed(ex, "graph")]
+
+        # ---- the profiled runs: the counted one replays only -------------
+        g0 = ex.graph_count
+        profile, wrappers, runs2 = profiled(ex)
+        require(ex.graph_count == g0, "a later run captured new graphs")
+        eager_profile, _, _ = profiled(eager)
+    finally:
+        ex.close()
+        eager.close()
+
+    # the coded GEMMs' launches: the device's kernel instances, since no
+    # wrapper runs in a replay (and none ran: no eager fallback)
+    counts = {"piece_gemm_stacked": sum(r["calls"]
+                                        for r in profile["piece_rows"]),
+              "skinny_gemm": sum(r["calls"] for r in profile["coding_rows"])}
+    counts.update({k: n for k, n in wrappers.items()
+                   if k.startswith("ssd_chunk")})
+    require(wrappers["piece_gemm_stacked"] == wrappers["skinny_gemm"]
+            == wrappers["conv2d"] == 0,
+            f"a replayed run called kernel wrappers: {wrappers}")
+    require(runs2 == want["coded_runs"],
+            f"{runs2} coded runs in the profiled run")
+    for k, n in counts.items():
+        design = want["launches_replayed_run"][k.split(".")[0]]
+        require(n == design, f"zamba2_mesh profiled run: {n} {k} launches, "
+                             f"the design implies {design}")
+
+    # ---- tokens and logits: the threaded phase's and the uncoded model's ---
+    by_id = {c.rid: c for c in out}
+    threaded = {c.rid: c for c in z["out"]}
+    require(all(np.array_equal(by_id[r].tokens, threaded[r].tokens)
+                for r in threaded),
+            "the mesh served other tokens than the worker pool")
+    worst, max_delta, near_ties, checked, i = 0.0, 0.0, 0, 0, 0
+    for ids, T, new in buckets:
+        gen = np.stack([by_id[j].tokens for j in ids])
+        for s in range(new):
+            ref, got = z["refs"][i], steps[i]
+            tol = 1e-3 * float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            require(err <= tol, f"zamba2_mesh bucket T={T} step {s}: logits "
+                                f"differ from the uncoded model by {err} > "
+                                f"{tol}")
+            worst = max(worst, err / tol)
+            max_delta = max(max_delta,
+                            float((got - z["steps"][i]).abs().max()))
+            require(bool((got.argmax(-1).cpu().numpy() == gen[:, s]).all()),
+                    "served tokens are not the argmax of their logits")
+            top2 = ref.topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            agree = ref.argmax(-1).cpu().numpy() == gen[:, s]
+            require(bool(agree[margin > tol].all()),
+                    f"zamba2_mesh bucket T={T} step {s}: a token differs "
+                    "from the uncoded one outside a near-tie")
+            near_ties += int((margin <= tol).sum())
+            checked += int((margin > tol).sum())
+            i += 1
+    require(i == len(steps), f"{len(steps)} recorded steps, {i} checked")
+    calls = {k: {c: v["runtime_calls"].get(c, {"calls": 0})["calls"]
+                 for c in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                           "cudaGraphLaunch", "cudaStreamSynchronize")}
+             for k, v in (("mesh", profile), ("mesh_eager", eager_profile),
+                          ("threads", z["threaded"]["profile"]))}
+    require(calls["mesh"]["cudaStreamSynchronize"]
+            < calls["threads"]["cudaStreamSynchronize"],
+            f"runtime calls per generate: {calls}")
+    require(calls["mesh"]["cudaGraphLaunch"] == runs2,
+            f"{calls['mesh']['cudaGraphLaunch']} graph launches in {runs2} "
+            "coded runs")
+    require(calls["mesh_eager"]["cudaGraphLaunch"] == 0,
+            "the eager yardstick replayed a graph")
+    ttft, own, per_tok = latency_rows(buckets, by_id)
+    head = turns[0]
+    emit({"phase": "zamba2_mesh",
+          "executor": "MeshExecutor(dead=(1,), stragglers=(2,)): one CUDA "
+                      "graph per (token count, weight), replayed per run",
+          "coded": {"scheme": "mds", "n": N_WORKERS, "k": ZAMBA2_K},
+          "reference": "the zamba2 phase's tokens and per-step logits (worker "
+                       "pool), and its uncoded teacher-forced logits",
+          "first_run": {"note": "captures every graph",
+                        "wall_s": wall_s, "tokens_per_s": n_tokens / wall_s,
+                        "ttft_ms": ttft, "ttft_own_bucket_ms": own,
+                        "decode_ms_per_token": per_tok},
+          "wall_s": head["wall_s"], "tokens": n_tokens,
+          "tokens_per_s": head["tokens_per_s"], "ttft_ms": head["ttft_ms"],
+          "ttft_own_bucket_ms": head["ttft_own_bucket_ms"],
+          "decode_ms_per_token": head["decode_ms_per_token"],
+          "run_wall_ms": head["run_wall_ms"],
+          "turns": turns,
+          "turns_note": "the same requests, every graph captured: 'graph' "
+                        "replays, 'eager' runs the same program on every "
+                        "call (MeshExecutor.program, no graph)",
+          "built": built, "built_expected": {
+              k: want[k] for k in ("programs", "graphs", "coded_runs")},
+          "wrapper_calls_first_run": first_calls,
+          "launches": counts,
+          "launches_note": "the profiled run: coded GEMMs as device kernel "
+                           "instances (piece_*, coding_gemm_* rows), the SSD "
+                           "as wrapper launches",
+          "launches_expected": want,
+          "tokens_equal_threaded": n_tokens, "steps_checked": len(steps),
+          "tokens_checked": checked, "near_ties": near_ties,
+          "worst_logit_err_over_tol": worst,
+          "max_abs_logit_delta_vs_threaded": max_delta,
+          "runtime_calls_per_generate": calls,
+          "threaded": z["threaded"], "profile": profile,
+          "eager_profile": eager_profile})
     return counts
 
 
@@ -1369,6 +1845,8 @@ KERNEL_META = {
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:66"},
 }
+# the one-program backend's entry of the skinny GEMM: all n pieces of a run
+KERNEL_META["piece_gemm_stacked"] = dict(KERNEL_META["skinny_gemm"])
 # the SSD kernel's four passes, each a kernel of the same source
 KERNEL_META.update({
     f"ssd_chunk.{p}": dict(KERNEL_META["ssd_chunk"])
@@ -1377,7 +1855,9 @@ KERNEL_META.update({
 
 def kernels_line(cases: list[dict], by_path: dict) -> dict:
     """One entry per kernel: ``launches`` sums the main paths' counted runs
-    (``launches_by_path`` splits them), the numbers are the headline case's,
+    (``launches_by_path`` splits them; on ``zamba2_mesh`` the coded GEMMs'
+    are the profiled run's device kernel instances, since a graph replay
+    calls no wrapper), the numbers are the headline case's,
     ``max_abs_err`` the worst over its cases in the headline's type."""
     out = []
     for name, meta in KERNEL_META.items():
@@ -1416,6 +1896,8 @@ def main() -> int:
     for p in phases:
         if p not in ALL_PHASES:
             ap.error(f"unknown phase {p!r}")
+    if "zamba2_mesh" in phases and "zamba2" not in phases:
+        ap.error("zamba2_mesh is held against the zamba2 phase: run both")
 
     import torch
 
@@ -1444,7 +1926,9 @@ def main() -> int:
     if "vgg16" in phases:
         by_path["vgg16"] = phase_vgg16(torch)
     if "zamba2" in phases:
-        by_path["zamba2"] = phase_zamba2(torch)
+        by_path["zamba2"], zamba2 = phase_zamba2(torch)
+    if "zamba2_mesh" in phases:
+        by_path["zamba2_mesh"] = phase_zamba2_mesh(torch, zamba2)
 
     if set(phases) != set(ALL_PHASES):
         print(f"partial run ({phases}): no result line", file=sys.stderr)

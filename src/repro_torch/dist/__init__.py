@@ -5,7 +5,9 @@ real CUDA/torch subtask compute; the master decodes at the k-th arrival
 (via the ``CodingScheme`` protocol), cancels stragglers, and re-dispatches
 on injected failures.  ``FakeClock`` + ``DeterministicDelay`` make every
 §V scenario a deterministic wall-clock-free test; ``RealClock`` makes the
-k-of-n saving measurable.
+k-of-n saving measurable.  ``MeshExecutor`` is the second backend: each
+coded op as one device program (all n pieces in one launch), captured as a
+CUDA graph on the card.
 """
 from .backend import CodedOp, ExecBackend, run_coded_op
 from .clock import (
@@ -16,6 +18,7 @@ from .clock import (
     stream_chunk_count,
 )
 from .executor import CodedExecutor, ExecHandle, decodable_prefix
+from .mesh_exec import MeshExecutor
 from .faults import (
     ChurnEvent,
     ChurnSchedule,
@@ -50,6 +53,7 @@ __all__ = [
     "CodedExecutor",
     "ExecHandle",
     "decodable_prefix",
+    "MeshExecutor",
     "ChurnEvent",
     "ChurnSchedule",
     "DelayModel",

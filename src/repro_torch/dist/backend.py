@@ -11,6 +11,10 @@
 #   * ``dist.executor.CodedExecutor``: the threaded backend.  Real k-of-n
 #     semantics — the master returns at the k-th arrival and cancels
 #     stragglers.
+#   * ``dist.mesh_exec.MeshExecutor``: one device program per op (all n
+#     pieces in one launch, a CUDA graph on the card).  k-of-n is
+#     algebraic: every piece is computed, the decodable subset is chosen
+#     ahead of dispatch from a configured fault pattern.
 from __future__ import annotations
 
 from dataclasses import dataclass

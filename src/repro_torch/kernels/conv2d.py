@@ -32,8 +32,14 @@ rounded once to x's dtype.
 Width slices: x is read through its strides, so ``x[..., a:b]`` is not
 copied; w is made contiguous if it is not; the output is contiguous.
 
-On a CPU tensor the wrapper computes :func:`conv2d_plain`.  On a CUDA tensor
-it launches the kernel or raises.
+:func:`conv2d_stacked` takes the n coded pieces of one run, ``(n, N, C_I, H,
+W_p)``, and folds them into N: one launch, each piece with the bits of its
+own launch (the one-program backend, ``dist/mesh_exec.py``).
+
+On a CPU tensor the wrappers compute :func:`conv2d_plain` (piece by piece
+for :func:`conv2d_stacked`: ``F.conv2d`` on the CPU gives a folded batch
+other bits than one image).  On a CUDA tensor they launch the kernel or
+raise.
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ import torch.nn.functional as F
 from . import _build, _tiles
 from ._tiles import LaunchPlan
 
-__all__ = ["conv2d", "conv2d_plain", "conv_plan", "conv_splits"]
+__all__ = ["conv2d", "conv2d_plain", "conv2d_stacked", "conv2d_stacked_plain",
+           "conv_plan", "conv_splits"]
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -162,3 +169,26 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
 
 
 conv2d.launches = 0  # kernel launches so far (not plain-version calls)
+
+
+def conv2d_stacked_plain(pieces: torch.Tensor, w: torch.Tensor,
+                         stride: int = 1) -> torch.Tensor:
+    """Plain PyTorch version: :func:`conv2d_plain` piece by piece."""
+    return torch.stack([conv2d_plain(p, w, stride) for p in pieces])
+
+
+def conv2d_stacked(pieces: torch.Tensor, w: torch.Tensor, stride: int = 1
+                   ) -> torch.Tensor:
+    """pieces: (n, N, C_I, H_I, W_I) -> (n, N, C_O, H_O, W_O): one
+    :func:`conv2d` launch on the ``n * N`` folded batch.  The R-split is a
+    function of the weight alone, so each piece has the bits of its own
+    launch."""
+    if pieces.dim() != 5:
+        raise ValueError(f"need pieces (n, N, C, H, W), got "
+                         f"{tuple(pieces.shape)}")
+    if pieces.device.type == "cpu":
+        return conv2d_stacked_plain(pieces, w, stride)
+    n, N = pieces.shape[:2]
+    out = conv2d(pieces.reshape((n * N,) + tuple(pieces.shape[2:])), w,
+                 stride)
+    return out.view((n, N) + tuple(out.shape[1:]))

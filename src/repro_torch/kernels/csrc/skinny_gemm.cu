@@ -39,6 +39,18 @@
 //    no split: every output is one ascending-k fmaf chain, so the tile may
 //    follow the shape.
 //
+// Stacked pieces (kernels/skinny_gemm.py::piece_gemm_stacked): the n coded
+// pieces of one run, (n * t_p, b) rows of A against one X, in one launch.
+// The regime is the one piece's (by t_p, not by n * t_p), and the coding and
+// GEMV regimes take a row-group grid axis (grid.y; the cluster stays on x):
+// group y holds rows y * R .. y * R + R - 1 (R = 16 coding, MR GEMV), so
+// the weight is read once per group instead of once per piece.  A row's
+// reduction order depends on the regime and b only (the GEMV lane l sums
+// k = l, l + 8, ... ascending whatever MR and the staging tile, then lanes
+// and ranks in ascending order), so every output has the bits of its piece
+// launched alone.  The tiled regime takes the stack as one (n * t_p)-row
+// product: each output is one ascending fmaf chain whatever the tile.
+//
 // Tensor cores stay out: TF32 breaks the numerics below; TF32 wgmma wants
 // a K-major B, and X (the weight) is (d_in, d_out); a 3xTF32 or bf16 wgmma
 // design is its own piece of work.
@@ -123,6 +135,16 @@ __device__ __forceinline__ void stage_a(const T* __restrict__ A, float* sA,
   __syncthreads();
 }
 
+// Row group blockIdx.y of R rows: A and out advance to its first row, m
+// becomes its row count.  One group (grid.y = 1) leaves all three as given.
+#define ROW_GROUP(R)                          \
+  do {                                        \
+    const int r0_ = (int)blockIdx.y * (R);    \
+    A += (long long)r0_ * b;                  \
+    out += (long long)r0_ * F;                \
+    m = min((R), m - r0_);                    \
+  } while (0)
+
 // Coding regime, aligned rows: one 16-byte column group per thread.
 template <typename T>
 __global__ void __launch_bounds__(CODING_THREADS)
@@ -130,6 +152,7 @@ coding_gemm_vec(const T* __restrict__ A, const T* __restrict__ X,
                 T* __restrict__ out, int m, int b, long long F) {
   constexpr int V = Group<T>::N;
   __shared__ float sA[MAX_SMALL * MAX_SMALL];
+  ROW_GROUP(MAX_SMALL);
   stage_a(A, sA, m, b);
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= F / V) return;
@@ -164,6 +187,7 @@ __global__ void __launch_bounds__(CODING_THREADS)
 coding_gemm_scalar(const T* __restrict__ A, const T* __restrict__ X,
                    T* __restrict__ out, int m, int b, long long F) {
   __shared__ float sA[MAX_SMALL * MAX_SMALL];
+  ROW_GROUP(MAX_SMALL);
   stage_a(A, sA, m, b);
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -188,7 +212,10 @@ constexpr int GEMV_THREADS = 256;
 constexpr int GEMV_GROUPS = 32;  // 16-byte column groups per block: one warp
 constexpr int GEMV_LANES = GEMV_THREADS / GEMV_GROUPS;  // contraction lanes
 
-template <typename T, int MR, bool VEC>
+// GROUPED: row groups on grid.y (a stack of more than MR rows).  One group
+// takes the plain kernel: the offset arithmetic alone slowed the MR = 8 and
+// 16 GEMV by 5-22% on an H100.
+template <typename T, int MR, bool VEC, bool GROUPED>
 __global__ void __launch_bounds__(GEMV_THREADS)
 piece_gemv_splitk(const T* __restrict__ A, const T* __restrict__ X,
                   T* __restrict__ out, int m, int b, long long F, int chunk) {
@@ -202,6 +229,7 @@ piece_gemv_splitk(const T* __restrict__ A, const T* __restrict__ X,
   __shared__ float part[MR][W];
   namespace cg = cooperative_groups;
   cg::cluster_group cl = cg::this_cluster();
+  if constexpr (GROUPED) ROW_GROUP(MR);
   const int splits = (int)cl.num_blocks();
   const int rank = (int)cl.block_rank();
   const int tid = threadIdx.x;
@@ -372,36 +400,41 @@ int regime_of(int m, int b) {
 
 template <typename T>
 int launch_coding(const T* a, const T* x, T* o, int m, int b, long long F,
-                  cudaStream_t stream) {
+                  int groups, cudaStream_t stream) {
   constexpr int V = Group<T>::N;
   const bool aligned = (F % V == 0) &&
                        (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(o) % 16 == 0);
   if (aligned) {
-    const long long groups = F / V;
-    const unsigned blocks =
-        (unsigned)((groups + CODING_THREADS - 1) / CODING_THREADS);
-    coding_gemm_vec<T><<<blocks, CODING_THREADS, 0, stream>>>(a, x, o, m, b, F);
+    const long long groups_v = F / V;
+    const dim3 grid(
+        (unsigned)((groups_v + CODING_THREADS - 1) / CODING_THREADS), groups);
+    coding_gemm_vec<T><<<grid, CODING_THREADS, 0, stream>>>(a, x, o, m, b, F);
   } else {
     long long blocks = (F + CODING_THREADS - 1) / CODING_THREADS;
     if (blocks > 65536) blocks = 65536;  // grid-stride covers the rest
-    coding_gemm_scalar<T><<<(unsigned)blocks, CODING_THREADS, 0, stream>>>(
-        a, x, o, m, b, F);
+    coding_gemm_scalar<T><<<dim3((unsigned)blocks, groups), CODING_THREADS, 0,
+                            stream>>>(a, x, o, m, b, F);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T, int MR>
 int launch_gemv(const T* a, const T* x, T* o, int m, int b, long long F,
-                int splits, int chunk, cudaStream_t stream) {
+                int splits, int chunk, int groups, cudaStream_t stream) {
   constexpr int W = GEMV_GROUPS * Group<T>::N;
   const long long slabs = (F + W - 1) / W;
-  if (m > MR || slabs * splits > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(slabs * splits));
+  if (m > MR * groups || m <= MR * (groups - 1) ||
+      slabs * splits > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(slabs * splits), groups);
   const bool vec = F % Group<T>::N == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
   void (*kernel)(const T*, const T*, T*, int, int, long long, int) =
-      vec ? &piece_gemv_splitk<T, MR, true> : &piece_gemv_splitk<T, MR, false>;
+      groups > 1 ? (vec ? &piece_gemv_splitk<T, MR, true, true>
+                        : &piece_gemv_splitk<T, MR, false, true>)
+                 : (vec ? &piece_gemv_splitk<T, MR, true, false>
+                        : &piece_gemv_splitk<T, MR, false, false>);
   return (int)sgemm::launch_cluster(kernel, grid, GEMV_THREADS, 0, splits,
                                     stream, a, x, o, m, b, F, chunk);
 }
@@ -423,18 +456,22 @@ int launch_tiled(const T* a, const T* x, T* o, int m, int b, long long F,
 
 template <typename T>
 int launch(const void* A, const void* X, void* out, int m, int b, long long F,
-           int regime, int config, int splits, int chunk, int smem,
+           int regime, int config, int splits, int chunk, int smem, int groups,
            cudaStream_t stream) {
   const T* a = static_cast<const T*>(A);
   const T* x = static_cast<const T*>(X);
   T* o = static_cast<T*>(out);
-  if (m < 1 || b < 1 || F < 1 || F >= 0x7fffffffLL ||
-      regime != regime_of(m, b))
+  // the rows of one group decide the regime (a group is one piece's rows,
+  // or up to 16 stacked rows of pieces in the same regime)
+  const int group_rows = (m + groups - 1) / max(groups, 1);
+  if (m < 1 || b < 1 || F < 1 || F >= 0x7fffffffLL || groups < 1 ||
+      groups > 65535 || regime != regime_of(group_rows, b))
     return (int)cudaErrorInvalidValue;
   if (regime == CODING) {
-    if (config != 0 || splits != 1 || smem != 0)
+    if (config != 0 || splits != 1 || smem != 0 ||
+        m > MAX_SMALL * groups || m <= MAX_SMALL * (groups - 1))
       return (int)cudaErrorInvalidValue;
-    return launch_coding<T>(a, x, o, m, b, F, stream);
+    return launch_coding<T>(a, x, o, m, b, F, groups, stream);
   }
   if (regime == GEMV) {
     // the splits are `splits` ascending ranges of `chunk` rows, none empty
@@ -443,15 +480,16 @@ int launch(const void* A, const void* X, void* out, int m, int b, long long F,
         (long long)splits * chunk < b)
       return (int)cudaErrorInvalidValue;
     switch (config) {  // MR = 2^config rows of A
-      case 0: return launch_gemv<T, 1>(a, x, o, m, b, F, splits, chunk, stream);
-      case 1: return launch_gemv<T, 2>(a, x, o, m, b, F, splits, chunk, stream);
-      case 2: return launch_gemv<T, 4>(a, x, o, m, b, F, splits, chunk, stream);
-      case 3: return launch_gemv<T, 8>(a, x, o, m, b, F, splits, chunk, stream);
-      case 4: return launch_gemv<T, 16>(a, x, o, m, b, F, splits, chunk, stream);
+      case 0: return launch_gemv<T, 1>(a, x, o, m, b, F, splits, chunk, groups, stream);
+      case 1: return launch_gemv<T, 2>(a, x, o, m, b, F, splits, chunk, groups, stream);
+      case 2: return launch_gemv<T, 4>(a, x, o, m, b, F, splits, chunk, groups, stream);
+      case 3: return launch_gemv<T, 8>(a, x, o, m, b, F, splits, chunk, groups, stream);
+      case 4: return launch_gemv<T, 16>(a, x, o, m, b, F, splits, chunk, groups, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (splits != 1 || chunk != b) return (int)cudaErrorInvalidValue;
+  if (splits != 1 || chunk != b || groups != 1)
+    return (int)cudaErrorInvalidValue;
   switch (config) {
 #define TILE_CASE(ID, BM, BN, TM, TN) \
   case ID:                            \
@@ -467,19 +505,22 @@ int launch(const void* A, const void* X, void* out, int m, int b, long long F,
 
 // dtype: 0 = float32, 1 = bfloat16.  regime: 0 coding, 1 GEMV, 2 tiled;
 // config: GEMV log2(MR), tiled the tile index of SGEMM_FOR_EACH_TILE;
-// splits / chunk: the contraction split; smem: dynamic shared bytes.
+// splits / chunk: the contraction split; smem: dynamic shared bytes;
+// groups: row groups of the coding and GEMV regimes (grid.y; 1 for one
+// piece, and always 1 for tiled).  m is every row of A, all groups.
 // Returns the launch's error (0 = launched), cudaErrorInvalidValue for a
 // plan this file cannot take.
 extern "C" int skinny_gemm_launch(const void* A, const void* X, void* out,
                                   int m, int b, long long F, int dtype,
                                   int regime, int config, int splits,
-                                  int chunk, int smem, void* stream) {
+                                  int chunk, int smem, int groups,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(A, X, out, m, b, F, regime, config, splits, chunk,
-                         smem, s);
+                         smem, groups, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(A, X, out, m, b, F, regime, config, splits,
-                                 chunk, smem, s);
+                                 chunk, smem, groups, s);
   return (int)cudaErrorInvalidValue;
 }

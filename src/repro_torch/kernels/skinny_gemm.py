@@ -27,6 +27,16 @@ Three regimes (``csrc/skinny_gemm.cu``), chosen by :func:`piece_plan`:
   4-stage cp.async ring, 8 x 8 or 4 x 4 outputs per thread), each output one
   ascending fmaf chain, so the tile follows the shape (``_tiles.pick_tile``).
 
+:func:`piece_gemm_stacked` runs the n coded pieces of one run, ``(n, t_p,
+b)`` against one X, in one launch (the one-program backend,
+``dist/mesh_exec.py``).  Its regime is one piece's, chosen by t_p
+(:func:`stacked_plan`): at t_p <= 16 the coding or GEMV regime over the
+stacked rows, 16 (GEMV: MR) to a row group on grid.y, so a decode step's
+ten t_p = 1 pieces read the weight once instead of ten times; above, the
+tiled regime on the ``(n * t_p, b)`` stack.  Every output has the bits of
+its piece launched alone through :func:`skinny_gemm`, because a row's
+reduction order depends on the regime and b only.
+
 All accumulate in f32 with plain ``fmaf`` (no TF32, no tensor cores: TF32
 breaks the numerics, and a 3xTF32 or bf16 ``wgmma`` design is its own
 work).  The reduction order of an output element depends on the regime and
@@ -40,6 +50,7 @@ tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 
 import torch
@@ -48,6 +59,7 @@ from . import _build, _tiles
 from ._tiles import LaunchPlan
 
 __all__ = ["skinny_gemm", "skinny_gemm_plain", "piece_plan", "gemv_splits",
+           "piece_gemm_stacked", "piece_gemm_stacked_plain", "stacked_plan",
            "SMALL"]
 
 SMALL = 16  # m, b <= SMALL selects the coding kernel; m <= SMALL the GEMV
@@ -113,6 +125,34 @@ def piece_plan(m: int, b: int, F: int, dtype=torch.float32) -> LaunchPlan:
                                        "output is one unsplit chain"))
 
 
+def stacked_plan(n: int, t_p: int, b: int, F: int, dtype=torch.float32
+                 ) -> LaunchPlan:
+    """How ``pieces (n, t_p, b) @ X (b, F)`` is launched: one piece's
+    regime (by t_p), over all ``n * t_p`` rows.  At t_p <= 16 the coding
+    or GEMV plan of one row group (16 rows, or the stack if smaller) with
+    ``grid[1]`` row groups; above, the tiled plan of the whole stack."""
+    if min(n, t_p) < 1:
+        raise ValueError(f"empty stack: n={n}, t_p={t_p}")
+    rows = n * t_p
+    if t_p > SMALL:
+        return piece_plan(rows, b, F, dtype)
+    plan = piece_plan(min(rows, SMALL), b, F, dtype)
+    group = SMALL if plan.regime == "coding" else plan.tile[0]
+    groups = -(-rows // group)
+    grid = (plan.grid[0], groups)
+    return dataclasses.replace(
+        plan, grid=grid,
+        note=_tiles.fill_note(grid[0] * grid[1], f"{groups} row group(s) of "
+                              f"{group} x {plan.grid[0]} blocks"))
+
+
+def piece_gemm_stacked_plain(pieces: torch.Tensor, X: torch.Tensor
+                             ) -> torch.Tensor:
+    """Plain PyTorch version: :func:`skinny_gemm_plain` piece by piece, so
+    each piece has the bits of its own plain product."""
+    return torch.stack([skinny_gemm_plain(p, X) for p in pieces])
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("skinny_gemm")
     fn = lib.skinny_gemm_launch
@@ -120,9 +160,42 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _launch(A: torch.Tensor, X: torch.Tensor, plan: LaunchPlan
+            ) -> torch.Tensor:
+    """Launch ``plan`` for ``A (m, b) @ X (b, F)`` (CUDA, X checked)."""
+    m, b = A.shape
+    F = X.shape[1]
+    if F >= 2 ** 31 or plan.grid[1] > 65535 or plan.grid[0] >= 2 ** 31:
+        raise ValueError(f"shape out of range for the kernel: m={m}, F={F}")
+    A = A.to(X.dtype).contiguous()
+    out = torch.empty((m, F), dtype=X.dtype, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        groups = plan.grid[1] if plan.regime != "tiled" else 1
+        err = _lib().skinny_gemm_launch(
+            A.data_ptr(), X.data_ptr(), out.data_ptr(), m, b, F,
+            _DTYPES[X.dtype], _REGIMES[plan.regime], plan.config,
+            plan.cluster, plan.chunk, plan.smem_bytes, groups, stream)
+    if err != 0:
+        raise RuntimeError(f"skinny_gemm launch failed: CUDA error {err} "
+                           f"(m={m}, b={b}, F={F}, {X.dtype}, {plan})")
+    return out
+
+
+def _check_x(X: torch.Tensor) -> None:
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    if X.dtype not in _DTYPES:
+        raise TypeError(f"skinny_gemm kernel takes float32 or bfloat16, got "
+                        f"{X.dtype}")
+    if not X.is_contiguous():
+        raise ValueError("X must be contiguous")
 
 
 def skinny_gemm(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -137,32 +210,39 @@ def skinny_gemm(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
                          f"{tuple(X.shape)}")
     if X.device.type == "cpu":
         return skinny_gemm_plain(A, X)
-    if X.device.type != "cuda":
-        raise ValueError(f"unsupported device {X.device}")
-    if X.dtype not in _DTYPES:
-        raise TypeError(f"skinny_gemm kernel takes float32 or bfloat16, got "
-                        f"{X.dtype}")
-    if not X.is_contiguous():
-        raise ValueError("X must be contiguous")
+    _check_x(X)
     m, b = A.shape
-    F = X.shape[1]
-    plan = piece_plan(m, b, F, X.dtype)
-    if F >= 2 ** 31 or plan.grid[1] > 65535 or plan.grid[0] >= 2 ** 31:
-        raise ValueError(f"shape out of range for the kernel: m={m}, F={F}")
-    A = A.to(X.dtype).contiguous()
-    out = torch.empty((m, F), dtype=X.dtype, device=X.device)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().skinny_gemm_launch(
-            A.data_ptr(), X.data_ptr(), out.data_ptr(), m, b, F,
-            _DTYPES[X.dtype], _REGIMES[plan.regime], plan.config,
-            plan.cluster, plan.chunk, plan.smem_bytes, stream)
-    if err != 0:
-        raise RuntimeError(f"skinny_gemm launch failed: CUDA error {err} "
-                           f"(m={m}, b={b}, F={F}, {X.dtype}, {plan})")
+    out = _launch(A, X, piece_plan(m, b, X.shape[1], X.dtype))
     with _count_lock:
         skinny_gemm.launches += 1
     return out
 
 
 skinny_gemm.launches = 0  # kernel launches so far (not plain-version calls)
+
+
+def piece_gemm_stacked(pieces: torch.Tensor, X: torch.Tensor
+                       ) -> torch.Tensor:
+    """pieces: (n, t_p, b), X: (b, F) -> (n, t_p, F) in X's dtype, all n
+    pieces in one launch, each with the bits of ``skinny_gemm(piece, X)``."""
+    if pieces.dim() != 3 or X.dim() != 2 or pieces.shape[2] != X.shape[0]:
+        raise ValueError(f"need pieces (n, t_p, b) and X (b, F), got "
+                         f"{tuple(pieces.shape)} and {tuple(X.shape)}")
+    if pieces.device != X.device:
+        raise ValueError(f"pieces are on {pieces.device}, X on {X.device}")
+    if pieces.numel() == 0 or X.numel() == 0:
+        raise ValueError(f"empty operand: pieces {tuple(pieces.shape)}, X "
+                         f"{tuple(X.shape)}")
+    if X.device.type == "cpu":
+        return piece_gemm_stacked_plain(pieces, X)
+    _check_x(X)
+    n, t_p, b = pieces.shape
+    F = X.shape[1]
+    out = _launch(pieces.reshape(n * t_p, b), X,
+                  stacked_plan(n, t_p, b, F, X.dtype))
+    with _count_lock:
+        piece_gemm_stacked.launches += 1
+    return out.view(n, t_p, F)
+
+
+piece_gemm_stacked.launches = 0  # kernel launches (not plain-version calls)

@@ -8,16 +8,18 @@ coded execution under any scheme registered in core/schemes.py, and
 ``executor`` runs those coded GEMMs live on a
 ``repro_torch.dist.CodedExecutor`` worker pool: each is split, encoded,
 dispatched as n piece GEMMs, and decoded at the k-th arrival while
-stragglers are cancelled.  The model runs eagerly either way.
+stragglers are cancelled.  ``executor="mesh"`` (or a
+``repro_torch.dist.MeshExecutor``) runs each coded GEMM as one device
+program instead: encode, the n pieces in one launch, decode, replayed as a
+CUDA graph on the card.  The model runs eagerly either way.
 
 Latency accounting is per request: ``latency_s`` measures from
 ``max(Request.arrival_s, generate() entry)`` to that request's last token,
 ``first_token_s`` to its first generated token.  Buckets are processed in
 arrival order of their earliest request.
 
-Not ported yet (ROADMAP.md): ``executor="mesh"`` (Queue A item 10),
-``adaptive=True`` (item 7), packed and chunked prefill and the prefix
-cache (item 9).
+Not ported yet (ROADMAP.md, Queue A): ``adaptive=True`` (item 5), packed
+and chunked prefill and the prefix cache (item 4).
 """
 from __future__ import annotations
 
@@ -55,6 +57,28 @@ class Completion:
     first_token_s: float = 0.0  # same reference -> its first token
 
 
+def _require_f32(params) -> None:
+    """The mesh backend serves f32 weights only: the model hands a coded
+    GEMM ``w.float()``, a new tensor per call for any other type, and the
+    mesh keys its CUDA graphs by the weight's pointer — every call would
+    capture (and keep) a new graph."""
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif (isinstance(node, torch.Tensor) and node.is_floating_point()
+                and node.dtype != torch.float32):
+            raise ValueError(
+                f"the mesh backend serves f32 weights, got a {node.dtype} "
+                f"parameter of shape {tuple(node.shape)}: its per-call cast "
+                "would capture a new CUDA graph on every coded GEMM (serve "
+                "it on the threaded CodedExecutor, or cast the params to "
+                "f32)")
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, params=None, *,
                  coded: tuple | None = None, scheme: str | None = None,
@@ -82,17 +106,39 @@ class Engine:
                     "activation — it would silently fall back per-GEMM")
             cfg = dataclasses.replace(cfg, coded_segment=segment)
         if isinstance(executor, str):
+            # backend shorthand (dist/backend.py): executor="mesh" serves
+            # the coded GEMMs as one device program each
+            # (dist/mesh_exec.py); "threads" asks for the pool backend,
+            # which needs constructor arguments we cannot guess
             if executor == "mesh":
-                raise NotImplementedError(
-                    "executor='mesh' (coded dispatch as one device program) "
-                    "is not ported yet (ROADMAP.md, Queue A item 10)")
-            raise ValueError(
-                f"unknown executor backend {executor!r}: pass a constructed "
-                "executor (repro_torch.dist.CodedExecutor)")
+                from ..dist.mesh_exec import MeshExecutor
+
+                executor = MeshExecutor()
+            else:
+                raise ValueError(
+                    f"unknown executor backend {executor!r}: pass 'mesh' "
+                    "or a constructed executor (repro_torch.dist."
+                    "CodedExecutor / repro_torch.dist.MeshExecutor)")
+        if executor is not None and segment:
+            from ..dist.mesh_exec import MeshExecutor
+
+            if isinstance(executor, MeshExecutor):
+                raise ValueError(
+                    "segment=True needs the threaded backend: segment "
+                    "chains dispatch opaque per-piece thunks, which one "
+                    "device program cannot hold")
         if adaptive:
+            from ..dist.mesh_exec import MeshExecutor
+
+            if isinstance(executor, MeshExecutor):
+                raise ValueError(
+                    "adaptive=True needs the threaded pool backend: the "
+                    "planner fits per-worker (mu, theta) from per-piece "
+                    "arrival timings, which one device program does not "
+                    "produce (every lane finishes together)")
             raise NotImplementedError(
                 "adaptive=True (online re-planning from live worker "
-                "profiles) is not ported yet (ROADMAP.md, Queue A item 7)")
+                "profiles) is not ported yet (ROADMAP.md, Queue A item 5)")
         if executor is not None and not cfg.coded_n:
             raise ValueError(
                 "executor= requires coded execution: pass coded=(n, k) "
@@ -103,6 +149,11 @@ class Engine:
             dev = resolve_device(device)
             gen = torch.Generator(device=dev).manual_seed(seed)
             params = init_params(cfg, gen, device=dev)
+        if executor is not None:
+            from ..dist.mesh_exec import MeshExecutor
+
+            if isinstance(executor, MeshExecutor):
+                _require_f32(params)
         self.params = params
         self.device = params["embed"].device
         self.max_batch = max_batch

@@ -48,7 +48,9 @@ def test_port_files_are_found():
                  "src/repro_torch/kernels/ssd_chunk.py",
                  "src/repro_torch/models/model.py",
                  "src/repro_torch/serving/engine.py",
-                 "src/repro_torch/telemetry/trace.py"):
+                 "src/repro_torch/telemetry/trace.py",
+                 "src/repro_torch/dist/mesh_exec.py",
+                 "src/repro_torch/launch/mesh.py"):
         assert must in names
     assert (PORT / "kernels" / "csrc" / "skinny_gemm.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "conv2d.cu").is_file()

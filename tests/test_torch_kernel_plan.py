@@ -17,7 +17,8 @@ from hypothesis import strategies as st
 
 from repro_torch.kernels import _build, _tiles
 from repro_torch.kernels.conv2d import conv_plan, conv_splits
-from repro_torch.kernels.skinny_gemm import gemv_splits, piece_plan
+from repro_torch.kernels.skinny_gemm import (SMALL, gemv_splits, piece_plan,
+                                             stacked_plan)
 
 CSRC = Path(_build.__file__).resolve().parent / "csrc"
 DTYPES = [torch.float32, torch.bfloat16]
@@ -120,6 +121,67 @@ class TestPiecePlan:
             piece_plan(0, 4, 4)
 
 
+class TestStackedPlan:
+    """``piece_gemm_stacked``: n pieces of t_p rows in one launch, in the
+    regime one piece takes (chosen by t_p, never by n * t_p), so a row's
+    reduction order — and its bits — are its piece's."""
+
+    @settings(max_examples=200, deadline=None)
+    @given(n=st.integers(1, 16), t_p=st.integers(1, 40), b=dims, F=dims,
+           dtype=st.sampled_from(DTYPES))
+    def test_regime_and_split_are_one_pieces(self, n, t_p, b, F, dtype):
+        p, one = stacked_plan(n, t_p, b, F, dtype), piece_plan(t_p, b, F,
+                                                                dtype)
+        assert p.regime == one.regime
+        assert p.splits == one.splits
+        _assert_plan_fits(p)
+        rows = n * t_p
+        if p.regime == "tiled":
+            assert p == piece_plan(rows, b, F, dtype)  # the whole stack
+            return
+        # row groups on grid.y: 16 rows (GEMV: MR, 16 once the stack is
+        # taller than 16), the last one ragged; the column slabs and
+        # cluster of one row group are one piece's
+        group = SMALL if p.regime == "coding" else p.tile[0]
+        assert (p.grid[1] - 1) * group < rows <= p.grid[1] * group
+        assert p.grid[0] == one.grid[0]
+        if p.regime == "gemv":
+            assert p.tile[0] == 1 << (min(rows, SMALL) - 1).bit_length()
+            assert p.config == p.tile[0].bit_length() - 1
+
+    @pytest.mark.parametrize("n,t_p,b,regime,groups,mr", [
+        (10, 1, 2048, "gemv", 1, 16),    # a decode step: one GEMV, m = 10
+        (10, 1, 8192, "gemv", 1, 16),
+        (10, 2, 2048, "gemv", 2, 16),    # 20 rows: two row groups
+        (10, 16, 8192, "gemv", 10, 16),  # the regime's edge
+        (3, 2, 2048, "gemv", 1, 8),      # a short stack keeps its MR
+        (10, 4, 8, "coding", 3, None),   # b <= 16: the coding regime
+        (10, 17, 2048, "tiled", None, None),  # t_p = 17: tiled stack
+        (10, 133, 2048, "tiled", None, None),
+        (10, 682, 8192, "tiled", None, None)])
+    def test_main_path_and_edges(self, n, t_p, b, regime, groups, mr):
+        p = stacked_plan(n, t_p, b, 8192)
+        assert p.regime == regime
+        if regime == "tiled":
+            assert p.grid == piece_plan(n * t_p, b, 8192).grid
+            return
+        assert p.grid[1] == groups
+        if mr is not None:
+            assert p.tile[0] == mr
+
+    def test_edge_between_regimes(self):
+        assert stacked_plan(10, 16, 2048, 64).regime == "gemv"
+        assert stacked_plan(10, 17, 2048, 64).regime == "tiled"
+        assert stacked_plan(1, 16, 16, 64).regime == "coding"
+        assert stacked_plan(1, 17, 16, 64).regime == "tiled"
+
+    def test_rejects_an_empty_stack(self):
+        with pytest.raises(ValueError):
+            stacked_plan(0, 1, 4, 4)
+        with pytest.raises(ValueError):
+            stacked_plan(2, 0, 4, 4)
+
+
 conv_x = st.tuples(st.integers(1, 12), st.integers(1, 40),
                    st.integers(1, 40))
 conv_w = st.tuples(st.integers(1, 600), st.integers(1, 600),
@@ -204,6 +266,15 @@ class TestSourcesAgree:
         for name in ("GEMV_THREADS", "GEMV_GROUPS"):
             got = re.search(rf"constexpr int {name} = (\d+);", text).group(1)
             assert int(got) == getattr(sg, name)
+
+    def test_row_groups(self):
+        """The coding regime's row group is the C side's MAX_SMALL rows,
+        and the entry point takes the row-group count."""
+        text = (CSRC / "skinny_gemm.cu").read_text()
+        got = re.search(r"constexpr int MAX_SMALL = (\d+);", text).group(1)
+        assert int(got) == SMALL
+        entry = text[text.index('extern "C" int skinny_gemm_launch'):]
+        assert "int groups" in entry[:entry.index(")")]
 
 
 def test_build_name_follows_the_shared_headers(tmp_path, monkeypatch):

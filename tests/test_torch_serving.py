@@ -146,9 +146,10 @@ def test_step_api_and_lane_membership(setup):
 
 def test_not_ported_options_raise(setup):
     _, _, tc, tp, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        Engine(tc, params=tp, coded=(5, 3), executor="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    # the one-program backend is ported: the shorthand builds it
+    eng = Engine(tc, params=tp, coded=(5, 3), executor="mesh", device="cpu")
+    assert isinstance(eng.executor, tdist.MeshExecutor)
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         Engine(tc, params=tp, coded=(5, 3), adaptive=True, device="cpu")
     with pytest.raises(ValueError, match="unknown executor"):
         Engine(tc, params=tp, coded=(5, 3), executor="threads", device="cpu")
