@@ -33,7 +33,12 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    launches of one, and the stacked piece GEMM
                    (``piece_gemm_stacked``, 10 pieces of t_p in {1, 2, 16,
                    17, 133, 682} rows at both Zamba2 weight shapes) equals
-                   its 10 single launches, timed beside them.
+                   its 10 single launches, timed beside them.  Every coding
+                   case (the encodes and decodes of both models, the ragged
+                   and unaligned edges of the variants) also runs each
+                   coding variant that can take it, on the whole and on a
+                   column block, bit for bit the chosen variant's, and is
+                   timed beside a device copy of the same bytes.
 3. ``coded_ops`` — ``coded_conv2d`` and ``coded_matmul`` through a
                    ``CodedExecutor`` with one dead worker and one straggler,
                    against the uncoded result; the same ops on a
@@ -282,9 +287,67 @@ def gemm_cases(torch):
         ("decode zamba2 prefill (6,6)@(6,682*8192)", D66, 682 * 8192, f32,
          False),
         ("encode zamba2 decode (10,6)@(6,2048)", G106, 2048, f32, False),
+        # the rest of Zamba2's coding shapes: the decode step's (t_p = 1:
+        # F = 2048 and 8192), prefill bucket 1's decode into w_out's input,
+        # and bucket 2's (t_p = 133)
+        ("encode zamba2 decode (10,6)@(6,8192)", G106, 8192, f32, False),
+        ("decode zamba2 decode (6,6)@(6,8192)", D66, 8192, f32, False),
+        ("decode zamba2 decode (6,6)@(6,2048)", D66, 2048, f32, False),
+        ("decode zamba2 prefill (6,6)@(6,682*2048)", D66, 682 * 2048, f32,
+         False),
+        ("encode zamba2 prefill T=200 (10,6)@(6,133*2048)", G106, 133 * 2048,
+         f32, False),
+        ("encode zamba2 prefill T=200 (10,6)@(6,133*8192)", G106, 133 * 8192,
+         f32, False),
+        ("decode zamba2 prefill T=200 (6,6)@(6,133*8192)", D66, 133 * 8192,
+         f32, False),
+        ("decode zamba2 prefill T=200 (6,6)@(6,133*2048)", D66, 133 * 2048,
+         f32, False),
+        # the coding variants' edges: ragged F near conv2_2's and
+        # Zamba2's prefill decode (scalar), an unaligned X (scalar), the
+        # widest A (narrow)
+        ("decode (6,6) ragged F=682*8192+1", D66, 682 * 8192 + 1, f32, False),
+        ("encode ragged F=291843", G106, 291843, f32, False),
+        ("encode unaligned X (10,6)@(6,291840)", G106, 291840, f32, False,
+         True),
+        ("decode (16,16) F=262144", D1616, 262144, f32, False),
         # the headline shape once more, last: two readings show the spread
         ("encode conv2_2 B=1 (again)", G106, 291840, f32, False),
     ]
+
+
+def coding_variants(F, dtype, aligned) -> tuple:
+    """The coding variants the C side takes: ``narrow`` needs aligned
+    pointers and whole 16-byte rows."""
+    whole = F % (16 // dtype.itemsize) == 0
+    return ("narrow", "scalar") if aligned and whole else ("scalar",)
+
+
+def coding_variants_agree(torch, name, A, X, got, aligned) -> list:
+    """Every coding variant that can run this product, launched on X and on
+    a column block of it (whole 16-byte groups wide for ``narrow``), gives
+    the bits of ``got``: one fmaf order whatever the variant."""
+    from repro_torch.kernels import skinny_gemm as sg
+
+    b, F = X.shape
+    V = 16 // X.element_size()
+    checked = []
+    for v in coding_variants(F, X.dtype, aligned):
+        c0 = F // 3 + 1
+        c1 = 2 * F // 3 + 3
+        if v == "narrow":
+            c1 = c0 + (c1 - c0) // V * V
+        whole = sg._launch(A, X, sg.coding_variant_plan(v, b, F, X.dtype))
+        part = sg._launch(A, X[:, c0:c1].contiguous(),
+                          sg.coding_variant_plan(v, b, c1 - c0, X.dtype))
+        torch.cuda.synchronize()
+        require(bool(torch.equal(whole, got)),
+                f"{name}: variant {v} differs from the chosen plan's bits")
+        require(bool(torch.equal(part, got[:, c0:c1])),
+                f"{name}: variant {v}: a column block is not bit-identical "
+                "to the whole")
+        checked.append(v)
+    return checked
 
 
 def check_gemm(torch, timer, gen, name, A_src, F, dtype, headline,
@@ -304,7 +367,7 @@ def check_gemm(torch, timer, gen, name, A_src, F, dtype, headline,
         require(X.data_ptr() % 16 != 0, f"{name}: X is aligned")
     else:
         X = _rand(torch, gen, (b, F), dtype)
-    plan = piece_plan(m, b, F, dtype)
+    plan = piece_plan(m, b, F, dtype, aligned=not unaligned)
     got = skinny_gemm(A, X)
     torch.cuda.synchronize()
     want = skinny_gemm_plain(A, X)
@@ -332,6 +395,8 @@ def check_gemm(torch, timer, gen, name, A_src, F, dtype, headline,
         part = skinny_gemm(A, X[:, c0:c1].contiguous())
         require(bool(torch.equal(part, got[:, c0:c1])),
                 f"{name}: a column block is not bit-identical to the whole")
+    variants = (coding_variants_agree(torch, name, A, X, got, not unaligned)
+                if plan.regime == "coding" and F >= 64 else [])
     # a contraction split is summed in a fixed order: run twice, same bits
     if plan.cluster > 1:
         require(bool(torch.equal(skinny_gemm(A, X), got)),
@@ -346,16 +411,23 @@ def check_gemm(torch, timer, gen, name, A_src, F, dtype, headline,
     n_bytes = (m * b + b * F + m * F) * item
     dn = str(dtype).replace("torch.", "")
     bound_ms, bound_by = bound(n_bytes, 2.0 * m * b * F, dn)
+    copy_ms = None
+    if plan.regime == "coding":  # a device copy of as many bytes, the ceiling
+        src = torch.empty(((m + b) // 2, F), dtype=dtype, device="cuda")
+        dst = torch.empty_like(src)
+        copy_ms = timer.ms(lambda: dst.copy_(src))
     return {"case": name, "kernel": "skinny_gemm", "shape": [m, b, F],
             "dtype": dn, "headline": headline, "unaligned": unaligned,
-            "plan": {"regime": plan.regime, "tile": list(plan.tile),
+            "plan": {"regime": plan.regime, "variant": plan.variant,
+                     "tile": list(plan.tile), "threads": plan.threads,
                      "splits": plan.cluster, "blocks": plan.blocks},
+            "variants_bit_identical": variants,
             "max_abs_err": float(err.max()), "tol_coef": coef,
             "err_over_tol": ratio, "max_abs_err_vs_f64": float(err64.max()),
             "ms": timer.ms(lambda: skinny_gemm(A, X)),
             "plain_ms": timer.ms(lambda: skinny_gemm_plain(A, X)),
             "library_ms": timer.ms(lambda: torch.matmul(A, X)),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "copy_ms": copy_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 # the one-program backend's piece GEMM: n = 10 pieces of t_p rows in one
@@ -1106,6 +1178,16 @@ def device_rows_named(prof, part: str) -> list[dict]:
     return sorted(rows, key=lambda r: -r["ms"])
 
 
+def coding_rows(prof, where: str) -> list[dict]:
+    """The coding GEMM's device rows, each of them the ``narrow`` variant:
+    no main-path encode or decode has an unaligned operand or a ragged F
+    (``index_select`` and ``reshape`` give fresh or contiguous storage)."""
+    rows = device_rows_named(prof, "coding_gemm")
+    require(bool(rows) and all("narrow" in r["name"] for r in rows),
+            f"{where}: the main path ran other coding kernels: {rows}")
+    return rows
+
+
 def runtime_calls(prof) -> dict:
     """The profile's CUDA runtime calls on the host (``cudaLaunchKernel``,
     ``cudaGraphLaunch``, ``cudaStreamSynchronize``, ...): calls and ms."""
@@ -1186,14 +1268,11 @@ def phase_vgg16(torch) -> dict:
     def serve(ex, xb, label, *, exact_counts, profile=False):
         g0, c0 = skinny_gemm.launches, conv_kernel.launches
         prof, prof_out = None, None
-        if profile:
-            try:
-                from torch.profiler import ProfilerActivity, profile as tprof
-                prof = tprof(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA])
-                prof.__enter__()
-            except Exception as e:  # a measurement aid, not a check
-                prof, prof_out = None, f"profiler unavailable: {e!r}"
+        if profile:  # a check too: its coding rows must all be `narrow`
+            from torch.profiler import ProfilerActivity, profile as tprof
+            prof = tprof(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+            prof.__enter__()
         reports = []
         ex.on_report = reports.append
         torch.cuda.synchronize()
@@ -1205,12 +1284,10 @@ def phase_vgg16(torch) -> dict:
         ex.on_report = None
         if prof is not None:
             prof.__exit__(None, None, None)
-            try:
-                prof_out = device_time_of(prof)
-                prof_out["idle_share"] = max(
-                    0.0, 1.0 - prof_out["device_ms"] / wall_ms)
-            except Exception as e:
-                prof_out = f"profiler gave no device times: {e!r}"
+            prof_out = device_time_of(prof)
+            prof_out["idle_share"] = max(
+                0.0, 1.0 - prof_out["device_ms"] / wall_ms)
+            prof_out["coding_rows"] = coding_rows(prof, label)
         b = xb.shape[0]
         ref = want[b]
         require(tuple(logits.shape) == (b, n_classes), f"{label}: shape")
@@ -1430,6 +1507,7 @@ def phase_zamba2(torch) -> dict:
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
         profile = device_time_of(prof)
         profile["runtime_calls"] = runtime_calls(prof)
+        profile["coding_rows"] = coding_rows(prof, "zamba2")
         ssd_rows = device_rows_named(prof, "ssd_")
         profile["wall_ms"] = prof_wall_ms
         profile["idle_share"] = max(0.0, 1.0 - profile["device_ms"]
@@ -1673,7 +1751,7 @@ def phase_zamba2_mesh(torch, z: dict) -> dict:
         profile["wall_ms"] = wall_ms
         profile["idle_share"] = max(0.0, 1.0 - profile["device_ms"] / wall_ms)
         profile["piece_rows"] = device_rows_named(prof, "piece_")
-        profile["coding_rows"] = device_rows_named(prof, "coding_gemm")
+        profile["coding_rows"] = coding_rows(prof, "zamba2_mesh")
         return profile, wrappers, executor.run_count - r0
 
     try:

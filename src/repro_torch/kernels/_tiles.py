@@ -12,8 +12,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 __all__ = ["BK", "STAGES", "MAX_SPLIT", "SMEM_LIMIT", "N_SMS",
-           "TILES", "LaunchPlan", "tile_threads", "tile_smem", "split_ranges",
-           "pick_tile", "fill_note"]
+           "CODING_VARIANTS", "TILES", "LaunchPlan", "tile_threads",
+           "tile_smem", "split_ranges", "pick_tile", "fill_note"]
 
 BK = 16            # depth of one pipeline stage
 STAGES = 4         # cp.async ring depth
@@ -23,6 +23,9 @@ SMEM_LIMIT = 232_448  # shared memory one block of an H100 may use
 N_SMS = 132        # streaming multiprocessors of an H100 SXM
 MIN_USED = 0.75  # least share of a grid's padded tiles that is real work
 
+# the skinny GEMM's coding regime, by its C side's index (config)
+CODING_VARIANTS = ("narrow", "scalar")
+
 # (BM, BN, TM, TN): block tile and outputs per thread, largest first
 TILES = ((128, 128, 8, 8), (128, 64, 8, 8), (64, 64, 4, 4), (32, 32, 4, 4))
 
@@ -31,10 +34,11 @@ TILES = ((128, 128, 8, 8), (128, 64, 8, 8), (64, 64, 4, 4), (32, 32, 4, 4))
 class LaunchPlan:
     """One launch: ``regime`` is "coding", "gemv" or "tiled" (skinny GEMM)
     or "conv"; ``config`` the C side's index (tile index; GEMV log2 of the
-    A rows held; 0 for coding); ``tile`` (BM, BN, TM, TN), or for GEMV
-    (rows of A held, columns per block); ``splits`` the ascending ranges
-    the contraction is cut into, one per cluster rank, each summed as one
-    ascending chain and added in rank order; ``smem_bytes`` the dynamic
+    A rows held; coding the variant, ``CODING_VARIANTS``); ``tile`` (BM, BN,
+    TM, TN), for GEMV (rows of A held, columns per block), for coding
+    (columns per block, or per grid-stride step); ``splits`` the ascending
+    ranges the contraction is cut into, one per cluster rank, each summed
+    as one ascending chain and added in rank order; ``smem_bytes`` the dynamic
     shared memory and ``shared_bytes`` all of it; ``note`` says why the
     grid is smaller than the card when it is."""
 
@@ -55,6 +59,11 @@ class LaunchPlan:
     @property
     def chunk(self) -> int:
         return self.splits[0][1] - self.splits[0][0]
+
+    @property
+    def variant(self) -> str:
+        """The coding regime's variant ("narrow" or "scalar")."""
+        return CODING_VARIANTS[self.config] if self.regime == "coding" else ""
 
     @property
     def blocks(self) -> int:

@@ -8,12 +8,25 @@
 // shared memory) is made in Python (kernels/skinny_gemm.py::piece_plan) and
 // checked here: a plan this file cannot take returns cudaErrorInvalidValue.
 //
-//  * coding (m, b <= 16): bound by bytes, (b + m) * F elements moved.  A
-//    sits in shared memory as f32.  Each thread owns one 16-byte group of
-//    neighbouring columns of F, reads its b inputs once into registers and
-//    writes m outputs.  When F is not a multiple of the group (or a pointer
-//    is not 16-byte aligned) a scalar kernel with one column per thread
-//    takes over; the ragged end is masked, never padded.
+//  * coding (m, b <= 16: every MDS/LT encode and decode): bound by bytes.
+//    (b + m) * F elements move and each output takes at most 16 multiply-
+//    adds, far below the card's f32 ridge point, so tensor cores would buy
+//    nothing.  A sits in shared memory as f32.  Two variants, chosen by
+//    kernels/skinny_gemm.py::coding_plan:
+//    - narrow (X and the output 16-byte aligned, F a multiple of the 16-
+//      byte group: every served model's encode and decode): one group of
+//      neighbouring columns a thread in blocks of 128, X's b loads issued
+//      before A is staged, then m 16-byte stores.  Many small blocks keep
+//      the most bytes in flight: on an H100 it moves its bytes within 4%
+//      of the time a device copy of as many bytes takes once F reaches a
+//      few 1e5, and it beat a persistent ring of bulk copies (TMA) at every
+//      aligned F measured, 2048 to 5.6M (PERF.md).
+//    - scalar (an unaligned pointer or a ragged F, whose rows start off
+//      16-byte boundaries): one column per thread, grid-stride; the ragged
+//      end is masked, never padded.
+//    Both compute each output as one fmaf chain from 0 over i = 0 .. b - 1,
+//    so they give the same bits, and the bits the coding regime always
+//    gave.
 //  * GEMV (m <= 16 < b: the decode-step pieces, t_p = 1 at B = 8): bound by
 //    bytes, the b x F weight is read once.  A block owns a slab of 32
 //    column groups (128 f32 / 256 bf16 columns); its 256 threads are 32
@@ -74,7 +87,8 @@
 namespace {
 
 constexpr int MAX_SMALL = 16;   // coding regime: m, b <= 16
-constexpr int CODING_THREADS = 256;
+constexpr int NARROW_THREADS = 128;  // coding variants' blocks
+constexpr int SCALAR_THREADS = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -145,23 +159,31 @@ __device__ __forceinline__ void stage_a(const T* __restrict__ A, float* sA,
     m = min((R), m - r0_);                    \
   } while (0)
 
-// Coding regime, aligned rows: one 16-byte column group per thread.
+// Coding, `narrow` (X and the output 16-byte aligned, F % V == 0: every
+// encode and decode of the served models): one 16-byte column group a
+// thread, blocks of NARROW_THREADS.  X's b loads are issued before A is
+// staged, so the staging overlaps them; nothing else stands between the
+// loads and the stores.  Output row r is one fmaf chain from 0 over i = 0,
+// 1, ..., b - 1, the order of coding_gemm_scalar too, so both variants give
+// the same bits.
 template <typename T>
-__global__ void __launch_bounds__(CODING_THREADS)
-coding_gemm_vec(const T* __restrict__ A, const T* __restrict__ X,
-                T* __restrict__ out, int m, int b, long long F) {
+__global__ void __launch_bounds__(NARROW_THREADS)
+coding_gemm_narrow(const T* __restrict__ A, const T* __restrict__ X,
+                   T* __restrict__ out, int m, int b, long long F) {
   constexpr int V = Group<T>::N;
   __shared__ float sA[MAX_SMALL * MAX_SMALL];
   ROW_GROUP(MAX_SMALL);
-  stage_a(A, sA, m, b);
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= F / V) return;
-  const long long col = g * V;
+  const long long col =
+      ((long long)blockIdx.x * NARROW_THREADS + threadIdx.x) * V;
+  const bool live = col < F;
   uint4 raw[MAX_SMALL];
 #pragma unroll
   for (int i = 0; i < MAX_SMALL; ++i)
-    if (i < b)
-      raw[i] = *reinterpret_cast<const uint4*>(X + (long long)i * F + col);
+    if (i < b && live)
+      raw[i] = __ldg(reinterpret_cast<const uint4*>(X + (long long)i * F +
+                                                    col));
+  stage_a(A, sA, m, b);
+  if (!live) return;
   for (int r = 0; r < m; ++r) {
     float acc[V];
 #pragma unroll
@@ -181,9 +203,10 @@ coding_gemm_vec(const T* __restrict__ A, const T* __restrict__ X,
   }
 }
 
-// Coding regime, ragged or unaligned F: one column per thread, grid-stride.
+// Coding, `scalar` (an X or output pointer that is not 16-byte aligned, or
+// a ragged F): one column per thread, grid-stride.
 template <typename T>
-__global__ void __launch_bounds__(CODING_THREADS)
+__global__ void __launch_bounds__(SCALAR_THREADS)
 coding_gemm_scalar(const T* __restrict__ A, const T* __restrict__ X,
                    T* __restrict__ out, int m, int b, long long F) {
   __shared__ float sA[MAX_SMALL * MAX_SMALL];
@@ -398,34 +421,45 @@ int regime_of(int m, int b) {
   return m <= MAX_SMALL ? GEMV : TILED;
 }
 
+enum CodingVariant { NARROW = 0, SCALAR = 1 };  // _tiles.CODING_VARIANTS
+
+// The coding plan (kernels/skinny_gemm.py::coding_plan): variant, threads,
+// grid.x.  narrow needs whole 16-byte rows and aligned X and output.
 template <typename T>
 int launch_coding(const T* a, const T* x, T* o, int m, int b, long long F,
-                  int groups, cudaStream_t stream) {
+                  int variant, int threads, long long grid_x, int groups,
+                  cudaStream_t stream) {
   constexpr int V = Group<T>::N;
-  const bool aligned = (F % V == 0) &&
-                       (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(o) % 16 == 0);
-  if (aligned) {
-    const long long groups_v = F / V;
-    const dim3 grid(
-        (unsigned)((groups_v + CODING_THREADS - 1) / CODING_THREADS), groups);
-    coding_gemm_vec<T><<<grid, CODING_THREADS, 0, stream>>>(a, x, o, m, b, F);
-  } else {
-    long long blocks = (F + CODING_THREADS - 1) / CODING_THREADS;
-    if (blocks > 65536) blocks = 65536;  // grid-stride covers the rest
-    coding_gemm_scalar<T><<<dim3((unsigned)blocks, groups), CODING_THREADS, 0,
-                            stream>>>(a, x, o, m, b, F);
+  const dim3 grid((unsigned)grid_x, groups);
+  if (variant == NARROW) {
+    const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(o) % 16 == 0;
+    const long long G = F / V;  // 16-byte column groups of a row
+    if (!aligned || F % V != 0 || threads != NARROW_THREADS ||
+        grid_x != (G + threads - 1) / threads)
+      return (int)cudaErrorInvalidValue;
+    coding_gemm_narrow<T><<<grid, threads, 0, stream>>>(a, x, o, m, b, F);
+    return (int)cudaGetLastError();
   }
+  // grid-stride: at most 65536 blocks
+  const long long blocks = (F + SCALAR_THREADS - 1) / SCALAR_THREADS;
+  if (variant != SCALAR || threads != SCALAR_THREADS ||
+      grid_x != (blocks < 65536 ? blocks : 65536))
+    return (int)cudaErrorInvalidValue;
+  coding_gemm_scalar<T><<<grid, SCALAR_THREADS, 0, stream>>>(a, x, o, m, b,
+                                                             F);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int MR>
 int launch_gemv(const T* a, const T* x, T* o, int m, int b, long long F,
-                int splits, int chunk, int groups, cudaStream_t stream) {
+                int splits, int chunk, int groups, int threads,
+                long long grid_x, cudaStream_t stream) {
   constexpr int W = GEMV_GROUPS * Group<T>::N;
   const long long slabs = (F + W - 1) / W;
   if (m > MR * groups || m <= MR * (groups - 1) ||
-      slabs * splits > 0x7fffffffLL)
+      slabs * splits > 0x7fffffffLL || threads != GEMV_THREADS ||
+      grid_x != slabs * splits)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(slabs * splits), groups);
   const bool vec = F % Group<T>::N == 0 &&
@@ -441,8 +475,11 @@ int launch_gemv(const T* a, const T* x, T* o, int m, int b, long long F,
 
 template <typename T, class Tl>
 int launch_tiled(const T* a, const T* x, T* o, int m, int b, long long F,
-                 int smem, cudaStream_t stream) {
-  if (smem != Tl::SMEM_BYTES) return (int)cudaErrorInvalidValue;
+                 int smem, int threads, long long grid_x,
+                 cudaStream_t stream) {
+  if (smem != Tl::SMEM_BYTES || threads != Tl::THREADS ||
+      grid_x != (F + Tl::BN - 1) / Tl::BN)
+    return (int)cudaErrorInvalidValue;
   const long long gy = (m + Tl::BM - 1) / Tl::BM;
   if (gy > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((F + Tl::BN - 1) / Tl::BN), (unsigned)gy);
@@ -457,7 +494,7 @@ int launch_tiled(const T* a, const T* x, T* o, int m, int b, long long F,
 template <typename T>
 int launch(const void* A, const void* X, void* out, int m, int b, long long F,
            int regime, int config, int splits, int chunk, int smem, int groups,
-           cudaStream_t stream) {
+           int threads, long long grid_x, cudaStream_t stream) {
   const T* a = static_cast<const T*>(A);
   const T* x = static_cast<const T*>(X);
   T* o = static_cast<T*>(out);
@@ -468,10 +505,11 @@ int launch(const void* A, const void* X, void* out, int m, int b, long long F,
       groups > 65535 || regime != regime_of(group_rows, b))
     return (int)cudaErrorInvalidValue;
   if (regime == CODING) {
-    if (config != 0 || splits != 1 || smem != 0 ||
-        m > MAX_SMALL * groups || m <= MAX_SMALL * (groups - 1))
+    if (splits != 1 || chunk != b || smem != 0 || m > MAX_SMALL * groups ||
+        m <= MAX_SMALL * (groups - 1))
       return (int)cudaErrorInvalidValue;
-    return launch_coding<T>(a, x, o, m, b, F, groups, stream);
+    return launch_coding<T>(a, x, o, m, b, F, config, threads, grid_x, groups,
+                            stream);
   }
   if (regime == GEMV) {
     // the splits are `splits` ascending ranges of `chunk` rows, none empty
@@ -480,11 +518,11 @@ int launch(const void* A, const void* X, void* out, int m, int b, long long F,
         (long long)splits * chunk < b)
       return (int)cudaErrorInvalidValue;
     switch (config) {  // MR = 2^config rows of A
-      case 0: return launch_gemv<T, 1>(a, x, o, m, b, F, splits, chunk, groups, stream);
-      case 1: return launch_gemv<T, 2>(a, x, o, m, b, F, splits, chunk, groups, stream);
-      case 2: return launch_gemv<T, 4>(a, x, o, m, b, F, splits, chunk, groups, stream);
-      case 3: return launch_gemv<T, 8>(a, x, o, m, b, F, splits, chunk, groups, stream);
-      case 4: return launch_gemv<T, 16>(a, x, o, m, b, F, splits, chunk, groups, stream);
+      case 0: return launch_gemv<T, 1>(a, x, o, m, b, F, splits, chunk, groups, threads, grid_x, stream);
+      case 1: return launch_gemv<T, 2>(a, x, o, m, b, F, splits, chunk, groups, threads, grid_x, stream);
+      case 2: return launch_gemv<T, 4>(a, x, o, m, b, F, splits, chunk, groups, threads, grid_x, stream);
+      case 3: return launch_gemv<T, 8>(a, x, o, m, b, F, splits, chunk, groups, threads, grid_x, stream);
+      case 4: return launch_gemv<T, 16>(a, x, o, m, b, F, splits, chunk, groups, threads, grid_x, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -493,7 +531,7 @@ int launch(const void* A, const void* X, void* out, int m, int b, long long F,
   switch (config) {
 #define TILE_CASE(ID, BM, BN, TM, TN) \
   case ID:                            \
-    return launch_tiled<T, sgemm::Tile<BM, BN, TM, TN>>(a, x, o, m, b, F, smem, stream);
+    return launch_tiled<T, sgemm::Tile<BM, BN, TM, TN>>(a, x, o, m, b, F, smem, threads, grid_x, stream);
     SGEMM_FOR_EACH_TILE(TILE_CASE)
 #undef TILE_CASE
     default:
@@ -504,23 +542,25 @@ int launch(const void* A, const void* X, void* out, int m, int b, long long F,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  regime: 0 coding, 1 GEMV, 2 tiled;
-// config: GEMV log2(MR), tiled the tile index of SGEMM_FOR_EACH_TILE;
-// splits / chunk: the contraction split; smem: dynamic shared bytes;
-// groups: row groups of the coding and GEMV regimes (grid.y; 1 for one
-// piece, and always 1 for tiled).  m is every row of A, all groups.
-// Returns the launch's error (0 = launched), cudaErrorInvalidValue for a
-// plan this file cannot take.
+// config: coding the variant (0 narrow, 1 scalar), GEMV log2(MR), tiled
+// the tile index of SGEMM_FOR_EACH_TILE; splits / chunk: the contraction
+// split; smem: dynamic shared bytes; groups: row groups of the coding and
+// GEMV regimes (grid.y; 1 for one piece, and always 1 for tiled); threads
+// and grid_x: the block and grid.x the plan expects.  m is every row of A,
+// all groups.  Returns the launch's error (0 = launched),
+// cudaErrorInvalidValue for a plan this file cannot take.
 extern "C" int skinny_gemm_launch(const void* A, const void* X, void* out,
                                   int m, int b, long long F, int dtype,
                                   int regime, int config, int splits,
                                   int chunk, int smem, int groups,
+                                  int threads, long long grid_x,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(A, X, out, m, b, F, regime, config, splits, chunk,
-                         smem, groups, s);
+                         smem, groups, threads, grid_x, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(A, X, out, m, b, F, regime, config, splits,
-                                 chunk, smem, groups, s);
+                                 chunk, smem, groups, threads, grid_x, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,19 +9,35 @@ skinny_gemm_pallas`` (body ``_gemm_kernel``), reached through
 
 Three regimes (``csrc/skinny_gemm.cu``), chosen by :func:`piece_plan`:
 
-* *coding* (m, b <= 16: every MDS/LT encode and decode) — bound by bytes,
-  ``(b + m) * F`` elements move and each takes at most 16 multiply-adds.
-  A lives in shared memory, each thread owns one 16-byte group of
-  neighbouring columns, reads its b inputs once and writes m outputs; a
-  ragged F is masked by a scalar variant, not padded and copied as the TPU
+* *coding* (m, b <= 16: every MDS/LT encode and decode) — bound by bytes:
+  ``(b + m) * F`` elements move and each output takes at most 16
+  multiply-adds, far below the f32 ridge point, so no tensor cores.  A
+  lives in shared memory as f32.  :func:`coding_plan` picks one of two
+  variants from (F, dtype, alignment):
+
+  - ``narrow`` (aligned X and output, F a whole number of 16-byte groups:
+    every served model's encode and decode) — one group of neighbouring
+    columns a thread in blocks of 128, X's b loads issued before A is
+    staged.  Many small blocks keep the most bytes in flight; on an H100 it
+    comes within a few percent of a device copy of the same bytes once F
+    reaches a few 1e5, and it beat a persistent grid fed by a ring of bulk
+    copies (TMA) at every aligned F measured, 2048 to 5.6M columns
+    (PERF.md).
+  - ``scalar`` (an unaligned pointer, or a ragged F, whose rows start off
+    16-byte boundaries) — one column a thread, grid-stride.
+
+  Both compute an output as one fmaf chain from 0 over the b inputs in
+  ascending order, so they give the same bits (those the coding regime
+  always gave); a ragged end is masked, never padded and copied as the TPU
   kernel did.
 * *GEMV* (m <= 16 < b: the decode-step pieces, t_p = 1) — bound by bytes,
   the ``b x F`` weight is read once.  A block owns 32 column groups (a warp
   reads 512 contiguous bytes of a row); its 256 threads are 32 groups x 8
-  contraction lanes with 16 (or 8) 16-byte loads in flight each, and the contraction is split over the lanes and
-  over the blocks of a thread-block cluster (:func:`gemv_splits`, a
-  function of b alone), the partials summed in a fixed order through
-  shared and distributed shared memory.
+  contraction lanes with 16 (or 8) 16-byte loads in flight each, and the
+  contraction is split over the lanes and over the blocks of a
+  thread-block cluster (:func:`gemv_splits`, a function of b alone), the
+  partials summed in a fixed order through shared and distributed shared
+  memory.
 * *tiled* (m > 16: the prefill pieces) — bound by the f32 FMA rate.  The
   pipelined register-blocked mainloop of ``csrc/sgemm_mainloop.cuh`` (a
   4-stage cp.async ring, 8 x 8 or 4 x 4 outputs per thread), each output one
@@ -51,6 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 
 import torch
@@ -59,6 +76,7 @@ from . import _build, _tiles
 from ._tiles import LaunchPlan
 
 __all__ = ["skinny_gemm", "skinny_gemm_plain", "piece_plan", "gemv_splits",
+           "coding_plan", "coding_variant_plan",
            "piece_gemm_stacked", "piece_gemm_stacked_plain", "stacked_plan",
            "SMALL"]
 
@@ -67,7 +85,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _REGIMES = {"coding": 0, "gemv": 1, "tiled": 2}
 _count_lock = threading.Lock()
 
-CODING_THREADS = 256
+# the coding regime's variants (csrc/skinny_gemm.cu): narrow blocks of
+# NARROW_THREADS 16-byte groups; scalar blocks of SCALAR_THREADS columns
+NARROW_THREADS = 128
+SCALAR_THREADS, SCALAR_MAX_BLOCKS = 256, 65536
+CODING_STATIC = 4 * SMALL * SMALL  # A as f32, static shared memory
 GEMV_THREADS, GEMV_GROUPS = 256, 32
 GEMV_ROWS_PER_SPLIT = 1024  # contraction rows one cluster rank streams, about
 
@@ -77,6 +99,7 @@ def skinny_gemm_plain(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return (A.to(X.dtype).float() @ X.float()).to(X.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def _group(dtype: torch.dtype) -> int:
     """Elements in one 16-byte group."""
     return 16 // torch.empty((), dtype=dtype).element_size()
@@ -88,18 +111,55 @@ def gemv_splits(b: int) -> tuple:
     return _tiles.split_ranges(b, -(-b // GEMV_ROWS_PER_SPLIT))
 
 
-def piece_plan(m: int, b: int, F: int, dtype=torch.float32) -> LaunchPlan:
+def coding_variant_plan(variant: str, b: int, F: int, dtype=torch.float32
+                        ) -> LaunchPlan:
+    """The coding regime's launch of one variant for ``(m <= 16, b) @ (b,
+    F)``; :func:`coding_plan` picks the variant.  Neither depends on m."""
+    if variant == "narrow":
+        V = _group(dtype)
+        if F % V:
+            raise ValueError(f"narrow needs whole 16-byte rows: F={F}")
+        grid = (-(-F // (NARROW_THREADS * V)), 1)
+        return LaunchPlan("coding", 0, (NARROW_THREADS * V,), NARROW_THREADS,
+                          ((0, b),), grid, 0, CODING_STATIC,
+                          _tiles.fill_note(grid[0], "F is small: one "
+                                           "16-byte group a thread, bound "
+                                           "by latency"))
+    if variant == "scalar":
+        grid = (min(-(-F // SCALAR_THREADS), SCALAR_MAX_BLOCKS), 1)
+        return LaunchPlan("coding", 1, (SCALAR_THREADS,), SCALAR_THREADS,
+                          ((0, b),), grid, 0, CODING_STATIC,
+                          _tiles.fill_note(grid[0], "F is small"))
+    raise ValueError(f"unknown coding variant {variant!r}")
+
+
+def coding_plan(m: int, b: int, F: int, dtype=torch.float32,
+                aligned: bool = True) -> LaunchPlan:
+    """How the coding product ``A (m, b) @ X (b, F)`` (m, b <= 16) is
+    launched: ``narrow`` when X and the output are 16-byte aligned and F
+    fills 16-byte groups (every served model's encode and decode), else
+    ``scalar``.  A function of (b, F, dtype, aligned); m does not change
+    it."""
+    if min(m, b, F) < 1:
+        raise ValueError(f"empty product: m={m}, b={b}, F={F}")
+    if m > SMALL or b > SMALL:
+        raise ValueError(f"not a coding product: m={m}, b={b} (> {SMALL})")
+    whole = F % _group(dtype) == 0
+    return coding_variant_plan("narrow" if aligned and whole else "scalar",
+                               b, F, dtype)
+
+
+@functools.lru_cache(maxsize=4096)
+def piece_plan(m: int, b: int, F: int, dtype=torch.float32,
+               aligned: bool = True) -> LaunchPlan:
     """How ``A (m, b) @ X (b, F)`` is launched: regime, tile, split,
-    cluster, grid and shared memory."""
+    cluster, grid and shared memory.  ``aligned``: X and the output start
+    on 16-byte boundaries (only the coding regime's variant reads it)."""
     if min(m, b, F) < 1:
         raise ValueError(f"empty product: m={m}, b={b}, F={F}")
     V = _group(dtype)
     if m <= SMALL and b <= SMALL:
-        grid = (-(-F // (V * CODING_THREADS)), 1)
-        return LaunchPlan("coding", 0, (), CODING_THREADS, ((0, b),), grid,
-                          0, 4 * SMALL * SMALL,
-                          _tiles.fill_note(grid[0], "F is small: bound by "
-                                           "launch latency"))
+        return coding_plan(m, b, F, dtype, aligned)
     if m <= SMALL:
         mr = 1 << (m - 1).bit_length()
         splits = gemv_splits(b)
@@ -125,8 +185,9 @@ def piece_plan(m: int, b: int, F: int, dtype=torch.float32) -> LaunchPlan:
                                        "output is one unsplit chain"))
 
 
-def stacked_plan(n: int, t_p: int, b: int, F: int, dtype=torch.float32
-                 ) -> LaunchPlan:
+@functools.lru_cache(maxsize=4096)
+def stacked_plan(n: int, t_p: int, b: int, F: int, dtype=torch.float32,
+                 aligned: bool = True) -> LaunchPlan:
     """How ``pieces (n, t_p, b) @ X (b, F)`` is launched: one piece's
     regime (by t_p), over all ``n * t_p`` rows.  At t_p <= 16 the coding
     or GEMV plan of one row group (16 rows, or the stack if smaller) with
@@ -135,8 +196,8 @@ def stacked_plan(n: int, t_p: int, b: int, F: int, dtype=torch.float32
         raise ValueError(f"empty stack: n={n}, t_p={t_p}")
     rows = n * t_p
     if t_p > SMALL:
-        return piece_plan(rows, b, F, dtype)
-    plan = piece_plan(min(rows, SMALL), b, F, dtype)
+        return piece_plan(rows, b, F, dtype, aligned)
+    plan = piece_plan(min(rows, SMALL), b, F, dtype, aligned)
     group = SMALL if plan.regime == "coding" else plan.tile[0]
     groups = -(-rows // group)
     grid = (plan.grid[0], groups)
@@ -161,7 +222,7 @@ def _lib() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -181,7 +242,8 @@ def _launch(A: torch.Tensor, X: torch.Tensor, plan: LaunchPlan
         err = _lib().skinny_gemm_launch(
             A.data_ptr(), X.data_ptr(), out.data_ptr(), m, b, F,
             _DTYPES[X.dtype], _REGIMES[plan.regime], plan.config,
-            plan.cluster, plan.chunk, plan.smem_bytes, groups, stream)
+            plan.cluster, plan.chunk, plan.smem_bytes, groups, plan.threads,
+            plan.grid[0], stream)
     if err != 0:
         raise RuntimeError(f"skinny_gemm launch failed: CUDA error {err} "
                            f"(m={m}, b={b}, F={F}, {X.dtype}, {plan})")
@@ -212,7 +274,8 @@ def skinny_gemm(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         return skinny_gemm_plain(A, X)
     _check_x(X)
     m, b = A.shape
-    out = _launch(A, X, piece_plan(m, b, X.shape[1], X.dtype))
+    out = _launch(A, X, piece_plan(m, b, X.shape[1], X.dtype,
+                                   X.data_ptr() % 16 == 0))
     with _count_lock:
         skinny_gemm.launches += 1
     return out
@@ -239,7 +302,7 @@ def piece_gemm_stacked(pieces: torch.Tensor, X: torch.Tensor
     n, t_p, b = pieces.shape
     F = X.shape[1]
     out = _launch(pieces.reshape(n * t_p, b), X,
-                  stacked_plan(n, t_p, b, F, X.dtype))
+                  stacked_plan(n, t_p, b, F, X.dtype, X.data_ptr() % 16 == 0))
     with _count_lock:
         piece_gemm_stacked.launches += 1
     return out.view(n, t_p, F)

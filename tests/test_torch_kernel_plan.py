@@ -10,6 +10,7 @@ element's reduction order never depends on F, N, H, W or P.
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings
@@ -17,8 +18,10 @@ from hypothesis import strategies as st
 
 from repro_torch.kernels import _build, _tiles
 from repro_torch.kernels.conv2d import conv_plan, conv_splits
-from repro_torch.kernels.skinny_gemm import (SMALL, gemv_splits, piece_plan,
-                                             stacked_plan)
+from repro_torch.kernels import skinny_gemm as sg
+from repro_torch.kernels.skinny_gemm import (SMALL, coding_plan,
+                                             coding_variant_plan, gemv_splits,
+                                             piece_plan, stacked_plan)
 
 CSRC = Path(_build.__file__).resolve().parent / "csrc"
 DTYPES = [torch.float32, torch.bfloat16]
@@ -35,6 +38,16 @@ CONV_MAIN = [((b, ci, h, w), (co, ci, 3, 3))
 CONV_LOCAL = [((1, 3, 226, 226), (64, 3, 3, 3)),
               ((1, 64, 226, 226), (64, 64, 3, 3)),
               ((1, 64, 114, 114), (128, 64, 3, 3))]
+
+# the coding regime's products on the main paths (m, b, F): VGG16 (224,
+# n=10, k=6) encodes at segment entry and decodes at exit at B = 1 and 4;
+# Zamba2-1.2B's coded FFN (n=10, k=6) at prefill t_p = 682 and 133 and the
+# decode step (t_p = 1), into w_in (2048 columns a token) and w_out (8192)
+CODING_MAIN = [(10, 6, 291840), (10, 6, 4 * 291840), (10, 6, 32768),
+               (10, 6, 4 * 32768), (6, 6, 258048), (6, 6, 4 * 258048),
+               (6, 6, 14336), (6, 6, 4 * 14336)] + [
+    (m, 6, t_p * d) for t_p in (682, 133, 1) for d in (2048, 8192)
+    for m in (10, 6)]
 
 dims = st.integers(min_value=1, max_value=20000)
 
@@ -119,6 +132,126 @@ class TestPiecePlan:
     def test_rejects_an_empty_product(self):
         with pytest.raises(ValueError):
             piece_plan(0, 4, 4)
+
+
+def coding_tiles(plan, F: int) -> np.ndarray:
+    """The column tiles a coding plan's blocks walk, as
+    ``csrc/skinny_gemm.cu`` cuts them: rows ``(block, first column, end
+    column)``."""
+    gx, cols = plan.grid[0], plan.tile[0]
+    if plan.variant == "narrow":
+        out = [(x, x * cols, min((x + 1) * cols, F)) for x in range(gx)]
+    else:  # scalar: grid-stride
+        out = [(x, c, min(c + cols, F)) for x in range(gx)
+               for c in range(x * cols, F, gx * cols)]
+    return np.array(out, dtype=np.int64).reshape(-1, 3)
+
+
+def _assert_coding_walk(plan, F):
+    """The tiles of a coding plan cover every column exactly once, none
+    wider than the plan's tile."""
+    tiles = coding_tiles(plan, F)
+    assert tiles[:, 0].min() == 0 and tiles[:, 0].max() == plan.grid[0] - 1
+    cover = np.zeros(F + 1, np.int64)
+    np.add.at(cover, tiles[:, 1], 1)
+    np.add.at(cover, tiles[:, 2], -1)
+    assert (np.cumsum(cover)[:F] == 1).all()
+    assert (tiles[:, 2] > tiles[:, 1]).all()
+    assert (tiles[:, 2] - tiles[:, 1]).max() <= plan.tile[0]
+
+
+def _assert_coding_grid(plan, F, dtype):
+    """Grid: narrow one block a tile of whole 16-byte groups; scalar
+    grid-stride, at most 65536 blocks.  No dynamic shared memory."""
+    V = 16 // torch.empty((), dtype=dtype).element_size()
+    gx = plan.grid[0]
+    if plan.variant == "narrow":
+        assert F % V == 0 and gx == -(-F // plan.tile[0])
+        assert plan.tile == (plan.threads * V,)
+    else:
+        assert plan.variant == "scalar"
+        assert gx == min(-(-F // plan.threads), sg.SCALAR_MAX_BLOCKS)
+        assert plan.tile == (plan.threads,)
+    assert plan.smem_bytes == 0 and plan.shared_bytes <= _tiles.SMEM_LIMIT
+
+
+class TestCodingPlan:
+    """The coding regime (m, b <= 16): which variant runs each product, and
+    that its grid covers the output once.  Every variant computes an output
+    as one ascending fmaf chain over b, so the choice never moves a bit."""
+
+    @pytest.mark.parametrize("m,b,F", CODING_MAIN)
+    def test_main_path_shapes_take_narrow(self, m, b, F):
+        p = coding_plan(m, b, F)
+        assert p.regime == "coding" and p.variant == "narrow"
+        assert p == piece_plan(m, b, F)
+        _assert_coding_grid(p, F, torch.float32)
+        _assert_coding_walk(p, F)
+
+    @pytest.mark.parametrize("m,b,F,dtype,aligned,variant", [
+        (10, 6, 291843, torch.float32, True, "scalar"),  # ragged
+        (10, 6, 2 ** 21 - 1, torch.float32, True, "scalar"),
+        (10, 6, 2 ** 21 + 1, torch.float32, True, "scalar"),
+        (6, 6, 682 * 8192 + 1, torch.float32, True, "scalar"),
+        (16, 16, 4097, torch.float32, True, "scalar"),
+        (10, 6, 2 ** 21 + 1, torch.bfloat16, True, "scalar"),
+        (10, 6, 291840, torch.bfloat16, True, "narrow"),
+        (10, 6, 682 * 8192, torch.bfloat16, True, "narrow"),
+        (10, 6, 291840, torch.float32, False, "scalar"),  # unaligned X
+        (10, 6, 682 * 8192, torch.float32, False, "scalar"),
+        (16, 16, 262144, torch.float32, True, "narrow")])
+    def test_edges(self, m, b, F, dtype, aligned, variant):
+        p = coding_plan(m, b, F, dtype, aligned)
+        assert p.variant == variant
+        assert p == piece_plan(m, b, F, dtype, aligned)
+        _assert_coding_grid(p, F, dtype)
+        _assert_coding_walk(p, F)
+
+    @settings(max_examples=150, deadline=None)
+    @given(b=st.integers(1, 16), F=st.integers(1, 300000),
+           dtype=st.sampled_from(DTYPES), aligned=st.booleans(),
+           variant=st.sampled_from(_tiles.CODING_VARIANTS))
+    def test_every_variant_covers_the_output_once(self, b, F, dtype, aligned,
+                                                  variant):
+        p = coding_plan(1, b, F, dtype, aligned)
+        assert p == coding_plan(16, b, F, dtype, aligned)  # m is not read
+        _assert_coding_grid(p, F, dtype)
+        _assert_coding_walk(p, F)
+        V = 16 // torch.empty((), dtype=dtype).element_size()
+        if variant == "narrow" and F % V:
+            with pytest.raises(ValueError):
+                coding_variant_plan(variant, b, F, dtype)
+            return
+        q = coding_variant_plan(variant, b, F, dtype)
+        _assert_coding_grid(q, F, dtype)
+        _assert_coding_walk(q, F)
+
+    @pytest.mark.parametrize("plan,args", [
+        (piece_plan, (10, 6, 291840)), (piece_plan, (1, 2048, 8192)),
+        (stacked_plan, (10, 1, 6, 2048)), (stacked_plan, (10, 682, 2048,
+                                                          8192))])
+    def test_plans_are_made_once_per_shape(self, plan, args):
+        """A launch looks its plan up: every encode, decode and piece of a
+        ``generate`` asks again for one of a few shapes."""
+        assert plan(*args) is plan(*args)
+        assert plan(*args, torch.float32, False) is plan(*args,
+                                                         torch.float32, False)
+
+    @pytest.mark.parametrize("n,t_p,F,groups", [(10, 1, 2048, 1),
+                                                (3, 10, 8192, 2),
+                                                (10, 4, 682 * 8192, 3)])
+    def test_stacked_row_groups(self, n, t_p, F, groups):
+        p = stacked_plan(n, t_p, 6, F)
+        assert p.regime == "coding" and p.variant == "narrow"
+        assert p.grid == (coding_plan(16, 6, F).grid[0], groups)
+
+    def test_rejects_what_is_not_a_coding_product(self):
+        with pytest.raises(ValueError):
+            coding_plan(17, 6, 64)
+        with pytest.raises(ValueError):
+            coding_plan(6, 17, 64)
+        with pytest.raises(ValueError):
+            coding_variant_plan("vector", 6, 64)
 
 
 class TestStackedPlan:
@@ -266,6 +399,15 @@ class TestSourcesAgree:
         for name in ("GEMV_THREADS", "GEMV_GROUPS"):
             got = re.search(rf"constexpr int {name} = (\d+);", text).group(1)
             assert int(got) == getattr(sg, name)
+
+    def test_coding_constants(self):
+        text = (CSRC / "skinny_gemm.cu").read_text()
+        for name in ("NARROW_THREADS", "SCALAR_THREADS"):
+            got = re.search(rf"constexpr int {name} = (\d+);", text).group(1)
+            assert int(got) == getattr(sg, name)
+        enum = re.search(r"enum CodingVariant \{([^}]*)\}", text).group(1)
+        names = [e.split("=")[0].strip().lower() for e in enum.split(",")]
+        assert tuple(names) == _tiles.CODING_VARIANTS
 
     def test_row_groups(self):
         """The coding regime's row group is the C side's MAX_SMALL rows,
