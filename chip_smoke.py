@@ -72,6 +72,24 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    launches against the design; runtime calls
                    (``cudaStreamSynchronize`` fewer than the pool's), device
                    time, idle share, TTFT and ms/token beside the pool's.
+7. ``adaptive``  — the adaptive loop on the card: (a) the same requests and
+                   weights served by ``Engine(coded=(10, 6), executor=
+                   <the zamba2 pool>, adaptive=True)``, every coded GEMM
+                   re-planning (k, assignment) from the live worker
+                   profiles; logits against the uncoded model, the 50x
+                   straggler starved of pieces, every skinny-GEMM launch
+                   by (regime, variant, shape) against the design of the
+                   (n, k) each GEMM ran at, a second run making the same
+                   plans; static against adaptive.  (b) VGG16 on an
+                   ``AdaptiveExecutor`` whose worker 4 drifts to an 8x
+                   straggler: every request right, the breach explainer
+                   ranks worker 4 first, the regime detector dates the
+                   drift, and the re-planned network is right too.  (c) an
+                   ``Autoscaler`` over an elastic pool: pinned decisions, n
+                   following the fleet, the coded decode-step GEMM against
+                   f64 after every step.  (d) the ``zamba2_mesh`` executor
+                   with a trace sink: one real-clock run span per coded op,
+                   their sum beside each ``generate``'s wall.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  There is no fallback: no GPU, a kernel
@@ -79,7 +97,8 @@ that does not build or launch, or any failed check ends the run with a
 non-zero exit code and no result line.
 
 ``--phases kernels,zamba2`` runs a subset (for debugging; the result line is
-only printed when every phase ran; ``zamba2_mesh`` needs ``zamba2``).  ``--time-kernels CHECKOUT`` only times
+only printed when every phase ran; ``zamba2_mesh`` and ``adaptive`` need
+``zamba2``).  ``--time-kernels CHECKOUT`` only times
 the skinny GEMM, the conv and the SSD scan of the port in another checkout
 (a parent commit unpacked beside this one) at this script's f32 cases, so
 that two versions can be held against each other in one run on one card.
@@ -104,7 +123,7 @@ L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 SEED = 0
 N_WORKERS = 10
 ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16", "zamba2",
-              "zamba2_mesh")
+              "zamba2_mesh", "adaptive")
 
 
 def emit(obj: dict) -> None:
@@ -311,9 +330,64 @@ def gemm_cases(torch):
         ("encode unaligned X (10,6)@(6,291840)", G106, 291840, f32, False,
          True),
         ("decode (16,16) F=262144", D1616, 262144, f32, False),
+    ] + adaptive_gemm_cases(torch) + [
         # the headline shape once more, last: two readings show the spread
         ("encode conv2_2 B=1 (again)", G106, 291840, f32, False),
     ]
+
+
+# The (token count, k) of every coded GEMM the ``adaptive`` phase's Zamba2
+# run gives (n = 10 throughout): its planner re-solves k° per GEMM from the
+# pool's FakeClock telemetry, which is deterministic, so the plans are
+# too.  k° = 6 at 4096 tokens and 7 at 8 on the prior; once the profiles
+# are ready, the size-blind DeterministicDelay calibrates the worker phases
+# to cost the same at any piece size, and k° falls (4, 2, 1 at 8 tokens;
+# 3, 1 at 800).  The phase asserts that every skinny-GEMM launch of its run
+# has one of the shapes these plans give.
+ADAPTIVE_PLANS = ((4096, 6), (8, 7), (8, 4), (8, 2), (8, 1), (800, 3),
+                  (800, 1))
+ZAMBA2_FFN = ((2048, 8192), (8192, 2048))  # (d_in, d_out) of w_in, w_out
+
+
+def adaptive_gemm_cases(torch) -> list:
+    """The coding and piece products of ``ADAPTIVE_PLANS`` that the static
+    plan's cases above do not hold already: per (T, k), t_p = T // k, the
+    encode ``(10, k) @ (k, t_p d_in)``, the decode ``(k, k) @ (k, t_p
+    d_out)`` and the piece ``(t_p, d_in) @ (d_in, d_out)`` of both FFN
+    weight shapes."""
+    import numpy as np
+    from repro_torch.core.coding import vandermonde_generator
+
+    have = {(4096 // 6, 6)}
+    cases, pieces = [], set()
+    for T, k in ADAPTIVE_PLANS:
+        t_p = T // k
+        if (t_p, k) in have:
+            continue
+        have.add((t_p, k))
+        G = vandermonde_generator(N_WORKERS, k)
+        D = np.linalg.inv(G[[0, 3, 4, 5, 6, 7, 8, 9][:k]])
+        for d_in, d_out in ZAMBA2_FFN:
+            cases.append((f"adaptive encode T={T} (10,{k})@({k},{t_p}*{d_in})",
+                          G, t_p * d_in, torch.float32, False))
+            cases.append((f"adaptive decode T={T} ({k},{k})@({k},{t_p}*"
+                          f"{d_out})", D, t_p * d_out, torch.float32, False))
+            if t_p not in (1, 2, 6, 16, 133, 682):  # the static cases' t_p
+                pieces.add((t_p, d_in, d_out))
+    for t_p, d_in, d_out in sorted(pieces):
+        cases.append((f"adaptive piece {t_p}x{d_in}x{d_out}", (t_p, d_in),
+                      d_out, torch.float32, False))
+    # the autoscaler part's decode-step GEMM, (8, 2048) @ (2048, 8192), at
+    # the (n, k) of the fleets its pinned series gives: (9, 7), (12, 8),
+    # (11, 8); the (7, 7) decode is held above
+    D8 = np.linalg.inv(vandermonde_generator(12, 8)[:8])
+    for n, k in ((9, 7), (12, 8), (11, 8)):
+        cases.append((f"autoscale encode ({n},{k})@({k},2048)",
+                      vandermonde_generator(n, k), 2048, torch.float32,
+                      False))
+    cases.append(("autoscale decode (8,8)@(8,8192)", D8, 8192,
+                  torch.float32, False))
+    return cases
 
 
 def coding_variants(F, dtype, aligned) -> tuple:
@@ -338,7 +412,10 @@ def coding_variants_agree(torch, name, A, X, got, aligned) -> list:
         if v == "narrow":
             c1 = c0 + (c1 - c0) // V * V
         whole = sg._launch(A, X, sg.coding_variant_plan(v, b, F, X.dtype))
-        part = sg._launch(A, X[:, c0:c1].contiguous(),
+        # a fresh copy: with one row (b = 1) the slice is already
+        # contiguous, and a view would start off a 16-byte boundary
+        part = sg._launch(A, X[:, c0:c1].clone(
+                              memory_format=torch.contiguous_format),
                           sg.coding_variant_plan(v, b, c1 - c0, X.dtype))
         torch.cuda.synchronize()
         require(bool(torch.equal(whole, got)),
@@ -1038,11 +1115,7 @@ def phase_coded_ops(torch) -> None:
             # length-R sum (~sqrt(R) u, u = 2^-24) and the decode amplifies
             # it by |D|_inf |G_S|_inf for the subset that arrived; selection
             # schemes decode by gather (amplification 1)
-            amp = 1.0
-            if hasattr(code, "decode_matrix"):
-                D = np.abs(code.decode_matrix(rep.subset)).sum(1).max()
-                G = np.abs(code.generator[rep.subset]).sum(1).max()
-                amp = float(D * G)
+            amp = decode_amplification(code, rep.subset)
             tol = amp * R ** 0.5 * 2.0 ** -24 * float(want.abs().max())
             err = float((got - want).abs().max())
             require(got.shape == want.shape, f"{op_name}: shape")
@@ -1520,37 +1593,11 @@ def phase_zamba2(torch) -> dict:
 
     # ---- coded vs uncoded, teacher-forced on the coded tokens ------------
     by_id = {c.rid: c for c in out}
-    worst, near_ties, checked, i = 0.0, 0, 0, 0
     refs = []  # the uncoded logits of each served step, for zamba2_mesh
     for ids, T, new in buckets:
-        toks = torch.as_tensor(np.stack([reqs[j].prompt for j in ids]),
-                               device="cuda")
-        gen = np.stack([by_id[j].tokens for j in ids])  # (b, new)
-        logits, cache = M.prefill(cfg, params, toks, max_seq=T + new)
-        for s in range(new):
-            if s:
-                nxt = torch.as_tensor(gen[:, s - 1: s], device="cuda")
-                logits, cache = M.decode_step(cfg, params, cache, token=nxt)
-            ref = logits[:, 0, : cfg.vocab]
-            refs.append(ref)
-            got = steps[i]
-            i += 1
-            tol = 1e-3 * float(ref.abs().max())
-            err = float((got - ref).abs().max())
-            require(err <= tol, f"zamba2 bucket T={T} step {s}: coded "
-                                f"logits differ by {err} > {tol}")
-            worst = max(worst, err / tol)
-            require(bool((got.argmax(-1).cpu().numpy() == gen[:, s]).all()),
-                    "served tokens are not the argmax of their logits")
-            top2 = ref.topk(2, dim=-1).values
-            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-            agree = ref.argmax(-1).cpu().numpy() == gen[:, s]
-            require(bool(agree[margin > tol].all()),
-                    f"zamba2 bucket T={T} step {s}: a token differs from "
-                    "the uncoded one outside a near-tie")
-            near_ties += int((margin <= tol).sum())
-            checked += int((margin > tol).sum())
-    require(i == len(steps), f"{len(steps)} recorded steps, {i} checked")
+        refs += teacher_forced_refs(torch, cfg, params, reqs, ids, T, new,
+                                    np.stack([by_id[j].tokens for j in ids]))
+    quality = hold_to_uncoded("zamba2", buckets, out, steps, refs)
 
     # ---- one prefill layer's SSD: the kernel and the plain chunk function
     x = params["embed"][torch.as_tensor(
@@ -1621,15 +1668,14 @@ def phase_zamba2(torch) -> dict:
           "coded_runs": runs, "dispatches": dispatches,
           "launches": counts, "launches_expected": want_counts,
           "t_complete": sorted({r.t_complete for r in reports}),
-          "steps_checked": len(steps), "tokens_checked": checked,
-          "near_ties": near_ties, "worst_logit_err_over_tol": worst,
-          "layer0_ssd": layer_ssd,
+          **quality, "layer0_ssd": layer_ssd,
           "ssd_passes": {"launches": {k: counts[f"ssd_chunk.{k}"]
                                       for k in ssd_chunk.pass_launches},
                          "device_rows": ssd_rows},
           "profile": profile})
     threaded = {"wall_s": wall_s, "ttft_ms": ttft,
                 "decode_ms_per_token": per_tok, "coded_runs": runs,
+                "virtual_completion_s": sum(r.t_complete for r in reports),
                 "launches": counts, "profile": profile}
     return counts, {"cfg": cfg, "params": params, "reqs": reqs,
                     "buckets": buckets, "out": out, "steps": steps,
@@ -1830,31 +1876,9 @@ def phase_zamba2_mesh(torch, z: dict) -> dict:
     require(all(np.array_equal(by_id[r].tokens, threaded[r].tokens)
                 for r in threaded),
             "the mesh served other tokens than the worker pool")
-    worst, max_delta, near_ties, checked, i = 0.0, 0.0, 0, 0, 0
-    for ids, T, new in buckets:
-        gen = np.stack([by_id[j].tokens for j in ids])
-        for s in range(new):
-            ref, got = z["refs"][i], steps[i]
-            tol = 1e-3 * float(ref.abs().max())
-            err = float((got - ref).abs().max())
-            require(err <= tol, f"zamba2_mesh bucket T={T} step {s}: logits "
-                                f"differ from the uncoded model by {err} > "
-                                f"{tol}")
-            worst = max(worst, err / tol)
-            max_delta = max(max_delta,
-                            float((got - z["steps"][i]).abs().max()))
-            require(bool((got.argmax(-1).cpu().numpy() == gen[:, s]).all()),
-                    "served tokens are not the argmax of their logits")
-            top2 = ref.topk(2, dim=-1).values
-            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-            agree = ref.argmax(-1).cpu().numpy() == gen[:, s]
-            require(bool(agree[margin > tol].all()),
-                    f"zamba2_mesh bucket T={T} step {s}: a token differs "
-                    "from the uncoded one outside a near-tie")
-            near_ties += int((margin <= tol).sum())
-            checked += int((margin > tol).sum())
-            i += 1
-    require(i == len(steps), f"{len(steps)} recorded steps, {i} checked")
+    quality = hold_to_uncoded("zamba2_mesh", buckets, out, steps, z["refs"])
+    max_delta = max(float((got - pool).abs().max())
+                    for got, pool in zip(steps, z["steps"]))
     calls = {k: {c: v["runtime_calls"].get(c, {"calls": 0})["calls"]
                  for c in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                            "cudaGraphLaunch", "cudaStreamSynchronize")}
@@ -1897,14 +1921,629 @@ def phase_zamba2_mesh(torch, z: dict) -> dict:
                            "instances (piece_*, coding_gemm_* rows), the SSD "
                            "as wrapper launches",
           "launches_expected": want,
-          "tokens_equal_threaded": n_tokens, "steps_checked": len(steps),
-          "tokens_checked": checked, "near_ties": near_ties,
-          "worst_logit_err_over_tol": worst,
+          "tokens_equal_threaded": n_tokens, **quality,
           "max_abs_logit_delta_vs_threaded": max_delta,
           "runtime_calls_per_generate": calls,
           "threaded": z["threaded"], "profile": profile,
           "eager_profile": eager_profile})
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the adaptive loop — re-planning, drift forensics, autoscaling
+# ---------------------------------------------------------------------------
+
+ADAPTIVE_PROBE_EVERY = 3   # every 3rd coded run gathers all pieces
+ADAPTIVE_MIN_SAMPLES = 4   # observations before a worker's profile is used
+VGG_DRIFT_AT, VGG_DRIFT_WORKER, VGG_DRIFT = 6, 4, 8.0
+VGG_REQUESTS = 12
+# the autoscaler's scripted queue depths and the decisions they give,
+# (t, joined, drained, n_alive); tests/test_torch_autoscale.py pins the same
+AUTOSCALE_SERIES = (0, 8, 16, 16, 4, 0, 0, 0, 0, 0)
+AUTOSCALE_PINNED = [
+    (0.0, (), (9,), 9), (1.0, (), (), 9), (2.0, (), (), 9),
+    (3.0, (10, 11, 12), (), 12), (4.0, (), (), 12), (5.0, (), (), 12),
+    (6.0, (), (), 12), (7.0, (), (), 12), (8.0, (), (), 12),
+    (9.0, (), (12,), 11)]
+
+
+class LaunchTally:
+    """Counts the skinny GEMM's launches by (regime, variant, m, b, F)
+    while active, by wrapping the module's ``_launch`` (every wrapper's
+    launch goes through it).  A breakdown of ``skinny_gemm.launches``,
+    which stays the count the kernels line reports."""
+
+    def __init__(self):
+        import collections
+        import threading
+
+        self.counts = collections.Counter()
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        import repro_torch.kernels.skinny_gemm as sg
+
+        self._orig = orig = sg._launch
+
+        def counting(A, X, plan):
+            out = orig(A, X, plan)
+            with self._lock:
+                self.counts[(plan.regime, plan.variant, A.shape[0],
+                             A.shape[1], X.shape[1])] += 1
+            return out
+
+        sg._launch = counting
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.kernels.skinny_gemm as sg
+
+        sg._launch = self._orig
+
+
+def gemm_key(torch, m: int, b: int, F: int) -> tuple:
+    """The tally key the launch plan of ``(m, b) @ (b, F)`` (f32, aligned)
+    gives."""
+    from repro_torch.kernels.skinny_gemm import piece_plan
+
+    plan = piece_plan(m, b, F, torch.float32, True)
+    return (plan.regime, plan.variant, m, b, F)
+
+
+def tally_covered(torch, tally: LaunchTally, where: str) -> None:
+    """Every launched shape is a ``kernels`` phase case (held there against
+    its plain version and f64)."""
+    held = set()
+    for _, A_src, F, *_ in gemm_cases(torch):
+        m, b = A_src if isinstance(A_src, tuple) else A_src.shape
+        held.add((m, b, F))
+    missing = sorted({k[2:] for k in tally.counts} - held)
+    require(not missing, f"{where}: skinny-GEMM shapes no kernels case "
+                         f"holds: {missing}")
+
+
+def tally_rows(tally: LaunchTally) -> list:
+    return [{"regime": r, "variant": v, "shape": [m, b, F], "launches": n}
+            for (r, v, m, b, F), n in sorted(tally.counts.items())]
+
+
+def decode_amplification(code, subset) -> float:
+    """|D|_inf |G_S|_inf of an MDS decode from ``subset``: how much it
+    amplifies the pieces' roundoff (1 for a selection scheme)."""
+    import numpy as np
+
+    if not hasattr(code, "decode_matrix"):
+        return 1.0
+    D = np.abs(code.decode_matrix(subset)).sum(1).max()
+    G = np.abs(code.generator[list(subset)]).sum(1).max()
+    return float(D * G)
+
+
+def teacher_forced_refs(torch, cfg, params, reqs, ids, T, new, gen) -> list:
+    """The uncoded model's last-position logits at each of a bucket's
+    ``new`` served steps, fed the served tokens ``gen`` (b, new)."""
+    import numpy as np
+    from repro_torch.models import model as M
+
+    toks = torch.as_tensor(np.stack([reqs[j].prompt for j in ids]),
+                           device="cuda")
+    logits, cache = M.prefill(cfg, params, toks, max_seq=T + new)
+    refs = []
+    for s in range(new):
+        if s:
+            nxt = torch.as_tensor(gen[:, s - 1: s], device="cuda")
+            logits, cache = M.decode_step(cfg, params, cache, token=nxt)
+        refs.append(logits[:, 0, : cfg.vocab])
+    return refs
+
+
+def uncoded_step_refs(torch, z, out) -> list:
+    """The uncoded logits of every served step, teacher-forced on ``out``'s
+    tokens: the zamba2 phase's where a bucket served the same tokens,
+    computed anew where it did not."""
+    import numpy as np
+
+    by_id = {c.rid: c for c in out}
+    theirs = {c.rid: c for c in z["out"]}
+    refs, i = [], 0
+    for ids, T, new in z["buckets"]:
+        if all(np.array_equal(by_id[j].tokens, theirs[j].tokens)
+               for j in ids):
+            refs += z["refs"][i:i + new]
+        else:
+            refs += teacher_forced_refs(
+                torch, z["cfg"], z["params"], z["reqs"], ids, T, new,
+                np.stack([by_id[j].tokens for j in ids]))
+        i += new
+    return refs
+
+
+def hold_to_uncoded(label, buckets, out, steps, refs) -> dict:
+    """Logits within 1e-3 max|logit| of the uncoded model's at every step;
+    tokens the argmax of the served logits, and the uncoded argmax outside
+    near-ties (a top-2 margin within the tolerance)."""
+    by_id = {c.rid: c for c in out}
+    worst, near_ties, checked, i = 0.0, 0, 0, 0
+    import numpy as np
+
+    for ids, T, new in buckets:
+        gen = np.stack([by_id[j].tokens for j in ids])
+        for s in range(new):
+            ref, got = refs[i], steps[i]
+            tol = 1e-3 * float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            require(err <= tol, f"{label} bucket T={T} step {s}: logits "
+                                f"differ from the uncoded model by {err} > "
+                                f"{tol}")
+            worst = max(worst, err / tol)
+            require(bool((got.argmax(-1).cpu().numpy() == gen[:, s]).all()),
+                    f"{label}: served tokens are not the argmax of their "
+                    "logits")
+            top2 = ref.topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            agree = ref.argmax(-1).cpu().numpy() == gen[:, s]
+            require(bool(agree[margin > tol].all()),
+                    f"{label} bucket T={T} step {s}: a token differs from "
+                    "the uncoded one outside a near-tie")
+            near_ties += int((margin <= tol).sum())
+            checked += int((margin > tol).sum())
+            i += 1
+    require(i == len(steps), f"{label}: {len(steps)} recorded steps, {i} "
+                             "checked")
+    return {"steps_checked": i, "tokens_checked": checked,
+            "near_ties": near_ties, "worst_logit_err_over_tol": worst}
+
+
+def adaptive_zamba2(torch, z) -> tuple:
+    """(a) Zamba2-1.2B served by ``Engine(adaptive=True)`` on the zamba2
+    phase's pool (dead worker 1, 50x straggler 2, FakeClock): every coded
+    GEMM re-solves (k, assignment) from the live profiles."""
+    import collections
+
+    import numpy as np
+    from repro_torch.dist import AdaptiveExecutor, FakeClock
+    from repro_torch.serving import Engine
+
+    cfg, params, reqs, buckets = z["cfg"], z["params"], z["reqs"], z["buckets"]
+    dead, straggler = 1, 2
+
+    def serve(profiled: bool) -> dict:
+        ex = make_executor(FakeClock())
+        try:
+            eng = Engine(cfg, params, coded=(N_WORKERS, ZAMBA2_K),
+                         scheme="mds", executor=ex, adaptive=True)
+            ad = eng.executor
+            require(isinstance(ad, AdaptiveExecutor) and ad.pool is ex.pool,
+                    "adaptive=True did not wrap the caller's pool")
+            ad.probe_every = ADAPTIVE_PROBE_EVERY
+            ad.planner.bank.min_samples = ADAPTIVE_MIN_SAMPLES
+            steps = record_steps(eng)
+            runs = []
+            plan_matmul = ad.plan_matmul
+
+            def recording(scheme, name, tokens, d_in, d_out):
+                got = plan_matmul(scheme, name, tokens, d_in, d_out)
+                runs.append({"tokens": tokens, "d_in": d_in,
+                             "d_out": d_out, "planned": got})
+                return got
+
+            def on_report(r):
+                require("report" not in runs[-1], "a coded run without a "
+                                                  "plan_matmul call")
+                runs[-1].update(report=r, probe=ad.last_was_probe)
+
+            ad.plan_matmul = recording
+            ad.on_report = on_report
+            prof = None
+            if profiled:
+                from torch.profiler import ProfilerActivity, profile as tprof
+                prof = tprof(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+                prof.__enter__()
+            torch.cuda.synchronize()
+            zero_launch_counters()
+            with LaunchTally() as tally:
+                t0 = time.perf_counter()
+                out = eng.generate(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = read_launch_counters()
+            profile = None
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                profile = device_time_of(prof)
+                profile["wall_ms"] = wall * 1e3
+                profile["idle_share"] = max(
+                    0.0, 1.0 - profile["device_ms"] / (wall * 1e3))
+                profile["coding_rows"] = coding_rows(prof, "adaptive")
+            require(all("report" in r for r in runs),
+                    "a plan_matmul call without a coded run")
+            return {"out": out, "steps": steps, "runs": runs, "wall": wall,
+                    "tally": tally, "counts": counts, "profile": profile,
+                    "ready": ad.planner.ready,
+                    "speeds": ad.planner.speeds(N_WORKERS)}
+        finally:
+            ex.close()
+
+    first = serve(profiled=False)
+    again = serve(profiled=True)
+    runs = first["runs"]
+
+    def nk(r):
+        n_new, k_new, _ = r["planned"]
+        return (n_new if n_new is not None else N_WORKERS,
+                k_new if k_new is not None else ZAMBA2_K)
+
+    def trail(rs):
+        return [(r["tokens"], r["d_in"], nk(r), r["planned"][2],
+                 sorted(r["report"].assignment.items()),
+                 r["report"].subset) for r in rs]
+
+    # the plans are a function of the virtual clock's telemetry alone
+    require(trail(again["runs"]) == trail(runs),
+            "a second adaptive run made other plans")
+    require(all(np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(first["out"], again["out"])),
+            "two adaptive runs of the same requests gave other tokens")
+    require(first["ready"], "the planner's profiles never became ready")
+    hist = collections.Counter()
+    want = collections.Counter()
+    for r in runs:
+        rep = r["report"]
+        n, k = nk(r)
+        require(len(rep.assignment) == n and len(rep.subset) == k,
+                f"a run of {len(rep.assignment)} pieces decoding "
+                f"{len(rep.subset)}, planned ({n}, {k})")
+        require(all(rep.assignment[p] != dead for p in rep.subset),
+                f"a consumed piece came from the dead worker: {rep.subset}")
+        hist[(r["tokens"], n, k)] += 1
+        t_p = r["tokens"] // k
+        want[gemm_key(torch, n, k, t_p * r["d_in"])] += 1
+        want[gemm_key(torch, t_p, r["d_in"], r["d_out"])] += sum(
+            1 for w in rep.assignment.values() if w != dead)
+        want[gemm_key(torch, k, k, t_p * r["d_out"])] += 1
+    require((8, N_WORKERS, 7) in hist,
+            f"no B = 8 decode GEMM ran at (10, 7): {dict(hist)}")
+    tally = first["tally"]
+    require(tally.counts == want,
+            f"skinny-GEMM launches by (regime, variant, shape) "
+            f"{dict(tally.counts)}, the design implies {dict(want)}")
+    counts = first["counts"]
+    require(sum(tally.counts.values()) == counts["skinny_gemm"],
+            "the tally and the wrapper's count disagree")
+    tally_covered(torch, tally, "adaptive zamba2")
+    n_ssd = cfg.n_layers * len(buckets)
+    for key, n in counts.items():
+        if key.startswith("ssd_chunk"):
+            require(n == n_ssd, f"{n} {key} launches, the design implies "
+                                f"{n_ssd}")
+    require(counts["conv2d"] == 0 and counts["piece_gemm_stacked"] == 0,
+            f"kernels off the path launched: {counts}")
+    last = [r for r in runs if not r["probe"]][-1]["report"]
+    require(straggler not in last.assignment.values(),
+            f"the 50x straggler still holds pieces once the profiles are "
+            f"ready: {last.assignment}")
+    pieces = collections.Counter(w for r in runs
+                                 for w in r["report"].assignment.values())
+    by_id = {c.rid: c for c in first["out"]}
+    ttft, own, per_tok = latency_rows(buckets, by_id)
+    quality = hold_to_uncoded("adaptive", buckets, first["out"],
+                              first["steps"],
+                              uncoded_step_refs(torch, z, first["out"]))
+    same = sum(np.array_equal(c.tokens, d.tokens)
+               for c, d in zip(first["out"], z["out"]))
+    virtual = sum(r["report"].t_complete for r in runs)
+    # a probe waits for every piece: its honest completion is the last
+    # arrival, not the k-th
+    waited = sum((max(a.t for a in r["report"].arrivals) if r["probe"]
+                  else r["report"].t_complete) for r in runs)
+    static = z["threaded"]
+    out = {
+        "setup": "Engine(coded=(10, 6), scheme='mds', executor=make_executor("
+                 "FakeClock()), adaptive=True), probe_every "
+                 f"{ADAPTIVE_PROBE_EVERY}, min_samples {ADAPTIVE_MIN_SAMPLES}",
+        "adaptive": {
+            "wall_s": first["wall"], "ttft_ms": ttft,
+            "ttft_own_bucket_ms": own, "decode_ms_per_token": per_tok,
+            "coded_runs": len(runs),
+            "probes": sum(1 for r in runs if r["probe"]),
+            "virtual_completion_s": virtual,
+            "virtual_completion_with_probe_waits_s": waited,
+            "nk_histogram": [[t, n, k, c] for (t, n, k), c in
+                             sorted(hist.items())],
+            "pieces_per_worker": {str(w): pieces[w]
+                                  for w in range(N_WORKERS)},
+            "last_assignment": sorted(last.assignment.items()),
+            "speeds": first["speeds"],
+            "launches": counts,
+            "skinny_gemm_by_plan": tally_rows(tally),
+            "profiled_run": again["profile"],
+            "requests_with_the_static_tokens": int(same), **quality},
+        "static": {
+            "wall_s": static["wall_s"], "ttft_ms": static["ttft_ms"],
+            "decode_ms_per_token": static["decode_ms_per_token"],
+            "coded_runs": static["coded_runs"],
+            "virtual_completion_s": static["virtual_completion_s"],
+            "nk": [N_WORKERS, ZAMBA2_K],
+            "device_ms": static["profile"]["device_ms"],
+            "idle_share": static["profile"]["idle_share"]}}
+    return out, counts
+
+
+def adaptive_vgg16(torch) -> tuple:
+    """(b) VGG16 at 224x224 on an ``AdaptiveExecutor`` whose worker 4
+    becomes an 8x straggler from request 6 on; the explainer names it, the
+    regime detector dates it, and the planner re-plans after a reset."""
+    import numpy as np
+    from repro_torch.core import SystemParams, compile_plan
+    from repro_torch.core.netplan import SegmentStep
+    from repro_torch.dist import (AdaptiveExecutor, AdaptivePlanner,
+                                  DeterministicDelay, FakeClock, FaultPlan,
+                                  StragglerDrift)
+    from repro_torch.kernels.conv2d import conv2d as conv_kernel
+    from repro_torch.kernels.skinny_gemm import skinny_gemm
+    from repro_torch.models.cnn import (init_vgg16, vgg16_conv_specs,
+                                        vgg16_forward)
+    from repro_torch.telemetry import (TraceRecorder, detect_regimes,
+                                       explain_breaches,
+                                       features_from_report)
+
+    class StampedPlanner(AdaptivePlanner):
+        """Stamps every observation with the request it came from, so that
+        ``reset_at(request)`` drops exactly the samples before it."""
+
+        now = 0.0
+
+        def observe_report(self, report, sizes, *, at=None, layer_ids=None):
+            return super().observe_report(
+                report, sizes, at=self.now if at is None else at,
+                layer_ids=layer_ids)
+
+    image, n_classes = 224, 1000
+    layers = vgg16_conv_specs(image)
+    plan = compile_plan(layers, N_WORKERS, SystemParams(), "mds")
+    params = init_vgg16(torch.Generator(device="cuda").manual_seed(SEED),
+                        n_classes=n_classes, image=image)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    total = VGG_REQUESTS + 2
+    xs = [torch.randn((1, 3, image, image), generator=gen, device="cuda")
+          for _ in range(total)]
+    wants = [vgg16_uncoded_plain(torch, layers, params, x) for x in xs]
+    planner = StampedPlanner()
+    ex = AdaptiveExecutor(N_WORKERS, planner=planner, clock=FakeClock(),
+                          delay_model=DeterministicDelay(1.0),
+                          probe_every=4)
+    sink = TraceRecorder()
+    ex.trace_sink = sink
+    ex.pool.trace_sink = sink
+    drift = StragglerDrift(((VGG_DRIFT_AT, FaultPlan(
+        straggler={VGG_DRIFT_WORKER: VGG_DRIFT})),))
+    requests = []
+
+    def serve(i, plan):
+        planner.now = float(i)
+        ex.pool.fault_plan = drift.plan_at(i)
+        reps = []
+        ex.on_report = lambda r: reps.append((r, ex.last_was_probe))
+        g0, c0 = skinny_gemm.launches, conv_kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = vgg16_forward(params, xs[i], plan=plan, executor=ex)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        ex.on_report = None
+        segs = [s for s in plan.steps if isinstance(s, SegmentStep)]
+        require(len(reps) == len(segs), f"{len(reps)} runs, {len(segs)} "
+                                        "segments")
+        ref = wants[i]
+        # f32 roundoff through the network, amplified by each decode: the
+        # vgg16 phase's 1e-3 max|logit| at its subsets' |D| |G_S| of 488,
+        # scaled by the worst amplification of this request's subsets (a
+        # fault-free fleet's ties decode from {0..5}: 7177)
+        amp = max(decode_amplification(seg.scheme, r.subset)
+                  for (r, _), seg in zip(reps, segs))
+        tol = 1e-3 / 488.0 * max(amp, 488.0) * float(ref.abs().max())
+        err = float((logits - ref).abs().max())
+        require(tuple(logits.shape) == (1, n_classes)
+                and bool(torch.isfinite(logits).all()),
+                f"vgg16 drift request {i}: shape or non-finite")
+        require(err <= tol, f"vgg16 drift request {i}: logits differ, "
+                            f"{err} > {tol}")
+        require(bool((logits.argmax(-1) == ref.argmax(-1)).all()),
+                f"vgg16 drift request {i}: argmax differs")
+        n_local = sum(s.stop - s.start for s in plan.steps
+                      if not isinstance(s, SegmentStep))
+        # every piece is computed on the virtual clock (no dead worker)
+        want_conv = n_local + sum(len(r.assignment) for r, _ in reps) + sum(
+            1 for s in segs if s.split.remainder is not None)
+        dc = conv_kernel.launches - c0
+        dg = skinny_gemm.launches - g0
+        require(dc == want_conv and dg == 2 * len(segs),
+                f"vgg16 drift request {i}: {dc} conv, {dg} skinny-GEMM "
+                f"launches, the plan implies {want_conv}, {2 * len(segs)}")
+        completion = sum(
+            (max(a.t for a in r.arrivals) if probe else r.t_complete)
+            - r.t_submit for r, probe in reps)
+        row = {}
+        for r, _ in reps:
+            for key, v in features_from_report(r, per_layer=True).items():
+                row[key] = max(row.get(key, v), v)
+        requests.append({"request": i, "wall_ms": wall_ms,
+                         "max_abs_err": err, "tol": tol,
+                         "decode_amplification": amp,
+                         "virtual_completion_s": completion,
+                         "probes": sum(1 for _, p in reps if p),
+                         "segments": len(segs), "conv2d_launches": dc,
+                         "skinny_gemm_launches": dg})
+        return completion, row
+
+    zero_launch_counters()
+    try:
+        done = [serve(i, plan) for i in range(VGG_REQUESTS)]
+        comps = [c for c, _ in done]
+        med = float(np.median(comps[:VGG_DRIFT_AT]))
+        breach = [c > 1.5 * med for c in comps]
+        times = [float(i) for i in range(VGG_REQUESTS)]
+        report = explain_breaches([r for _, r in done], breach, times)
+        require(bool(report.culprits)
+                and report.culprits[0].worker == VGG_DRIFT_WORKER,
+                f"the explainer did not rank worker {VGG_DRIFT_WORKER} "
+                f"first: {report.describe()}")
+        split = detect_regimes(comps)
+        require(split is not None and abs(split.split - VGG_DRIFT_AT) <= 1,
+                f"regime shift found at {split}, drift at {VGG_DRIFT_AT}")
+        planner.reset_at(float(split.split))
+        replan = planner.replan_segments(layers, N_WORKERS)
+        for i in range(VGG_REQUESTS, total):
+            serve(i, replan)
+        counts = read_launch_counters()
+    finally:
+        ex.close()
+    require(counts["conv2d"] > 0 and counts["skinny_gemm"] > 0,
+            f"a kernel of the path was never launched: {counts}")
+    return {"setup": "vgg16_forward(executor=AdaptiveExecutor(10, FakeClock,"
+                     " DeterministicDelay(1.0), probe_every=4)), worker "
+                     f"{VGG_DRIFT_WORKER} {VGG_DRIFT}x from request "
+                     f"{VGG_DRIFT_AT}",
+            "breach_rule": "virtual completion > 1.5 x median of requests "
+                           f"0-{VGG_DRIFT_AT - 1} ({med})",
+            "breaches": breach, "explainer": json.loads(report.to_json()),
+            "explainer_says": report.describe(),
+            "regime": {"split": split.split, "mean_pre": split.mean_pre,
+                       "mean_post": split.mean_post, "score": split.score},
+            "plan": plan.describe(), "replan": replan.describe(),
+            "replan_changed": replan.describe() != plan.describe(),
+            "speeds": planner.speeds(N_WORKERS),
+            "trace": {"run_spans": len(sink.by_name("run")),
+                      "piece_spans": len(sink.by_name("piece"))},
+            "launches": counts, "requests": requests}, {
+        k: counts[k] for k in ("skinny_gemm", "conv2d")}
+
+
+def adaptive_autoscale(torch) -> dict:
+    """(c) An elastic pool under ``Autoscaler(min 6, max 12)``, stepped
+    through a scripted queue-depth series, with the decode-step GEMM
+    (8, 2048) @ (2048, 8192) coded over the live fleet after each step."""
+    from repro_torch.core import coded_matmul
+    from repro_torch.core.schemes import get_scheme
+    from repro_torch.dist import (Autoscaler, CodedExecutor,
+                                  DeterministicDelay, FakeClock)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    T, d_in, d_out = 8, 2048, 8192
+    x = _rand(torch, gen, (T, d_in), torch.float32)
+    w = _rand(torch, gen, (d_in, d_out), torch.float32, d_in ** -0.5)
+    exact = x.double() @ w.double()
+    base = get_scheme("mds").make(N_WORKERS, ZAMBA2_K)
+    ex = CodedExecutor(N_WORKERS, clock=FakeClock(),
+                       delay_model=DeterministicDelay(1.0), elastic=True)
+    rows, got = [], []
+    try:
+        auto = Autoscaler(ex.pool, min_workers=6, max_workers=12)
+        with LaunchTally() as tally:
+            for i, q in enumerate(AUTOSCALE_SERIES):
+                dec = auto.step(q, float(i))
+                got.append((dec.t, dec.joined, dec.drained, dec.n_alive))
+                n_new, k_new, _ = ex.plan_matmul(base, "mds", T, d_in, d_out)
+                n = n_new if n_new is not None else base.n
+                k_policy = k_new if k_new is not None else base.k
+                # the policy's k (n - 2) outgrows the 8 tokens at n >= 11:
+                # the step is split into at most 8 token pieces
+                code = get_scheme("mds").make(n, min(k_policy, T))
+                y = coded_matmul(x, w, code, executor=ex)
+                torch.cuda.synchronize()
+                rep = ex.last_report
+                # coded vs exact: the pieces' f32 roundoff of a length-d_in
+                # sum (~sqrt(d_in) u) amplified by the decode, 4x slack
+                tol = (4.0 * decode_amplification(code, rep.subset)
+                       * d_in ** 0.5 * 2.0 ** -24 * float(exact.abs().max()))
+                err = float((y.double() - exact).abs().max())
+                require(n == dec.n_alive, f"autoscale step {i}: n = {n}, "
+                                          f"{dec.n_alive} alive")
+                require(sorted(set(rep.assignment.values()))
+                        == ex.pool.dispatch_preview(),
+                        f"autoscale step {i}: pieces went to "
+                        f"{sorted(set(rep.assignment.values()))}, the "
+                        f"fleet is {ex.pool.dispatch_preview()}")
+                require(err <= tol, f"autoscale step {i}: coded GEMM err "
+                                    f"{err} > {tol}")
+                rows.append({"step": i, "queue": q, "decision": {
+                    "joined": dec.joined, "drained": dec.drained,
+                    "n_alive": dec.n_alive, "reason": dec.reason},
+                    "n": n, "k_policy": k_policy, "k": code.k,
+                    "subset": rep.subset, "max_abs_err": err, "tol": tol})
+    finally:
+        ex.close()
+    require(got == AUTOSCALE_PINNED,
+            f"autoscaler decisions {got}, pinned {AUTOSCALE_PINNED}")
+    tally_covered(torch, tally, "autoscale")
+    return {"setup": "CodedExecutor(10, FakeClock, DeterministicDelay(1.0), "
+                     "elastic=True), Autoscaler(min_workers=6, "
+                     "max_workers=12)",
+            "series": AUTOSCALE_SERIES, "steps": rows,
+            "skinny_gemm_by_plan": tally_rows(tally)}
+
+
+def adaptive_mesh_spans(torch, z) -> dict:
+    """(d) The zamba2_mesh phase's executor with a ``TraceRecorder``: one
+    real-clock "run" span per coded op, whose sum per ``generate`` is the
+    host time spent inside coded runs."""
+    import numpy as np
+    from repro_torch.dist import MeshExecutor
+    from repro_torch.serving import Engine
+    from repro_torch.telemetry import TraceRecorder
+
+    cfg, params, reqs = z["cfg"], z["params"], z["reqs"]
+    want_runs = zamba2_mesh_expected(cfg)["coded_runs"]
+    mx = MeshExecutor(dead=(1,), stragglers=(2,))
+    sink = TraceRecorder()
+    mx.trace_sink = sink
+    rows = []
+    try:
+        eng = Engine(cfg, params, coded=(N_WORKERS, ZAMBA2_K), executor=mx)
+        for label in ("first (captures every graph)", "replays",
+                      "replays"):
+            sink.clear()
+            r0 = mx.run_count
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            spans = sink.by_name("run")
+            require(len(spans) == mx.run_count - r0 == want_runs,
+                    f"{len(spans)} run spans for {mx.run_count - r0} coded "
+                    f"ops, the design implies {want_runs}")
+            require(all(s.tid == "mesh" for s in spans), "a span off the "
+                                                         "mesh track")
+            require(all(np.array_equal(a.tokens, b.tokens)
+                        for a, b in zip(out, z["out"])),
+                    "the traced mesh served other tokens than the pool")
+            span_s = sum(s.dur for s in spans)
+            rows.append({"generate": label, "wall_s": wall,
+                         "run_spans": len(spans), "run_span_sum_s": span_s,
+                         "share_of_wall": span_s / wall,
+                         "run_span_ms": t_compute_stats(
+                             [s.dur for s in spans])})
+    finally:
+        mx.close()
+    return {"setup": "MeshExecutor(dead=(1,), stragglers=(2,)) with a "
+                     "TraceRecorder as trace_sink",
+            "generates": rows}
+
+
+def phase_adaptive(torch, z: dict) -> dict:
+    """Parts (a) to (d), one JSON line each; returns the counted paths'
+    launches."""
+    zamba2, counts_a = adaptive_zamba2(torch, z)
+    emit({"phase": "adaptive", "part": "a: zamba2", **zamba2})
+    vgg16, counts_b = adaptive_vgg16(torch)
+    emit({"phase": "adaptive", "part": "b: vgg16 drift", **vgg16})
+    emit({"phase": "adaptive", "part": "c: autoscale",
+          **adaptive_autoscale(torch)})
+    emit({"phase": "adaptive", "part": "d: mesh host spans",
+          **adaptive_mesh_spans(torch, z)})
+    return {"adaptive_zamba2": counts_a, "adaptive_vgg16": counts_b}
 
 
 # ---------------------------------------------------------------------------
@@ -1974,8 +2613,9 @@ def main() -> int:
     for p in phases:
         if p not in ALL_PHASES:
             ap.error(f"unknown phase {p!r}")
-    if "zamba2_mesh" in phases and "zamba2" not in phases:
-        ap.error("zamba2_mesh is held against the zamba2 phase: run both")
+    for p in ("zamba2_mesh", "adaptive"):
+        if p in phases and "zamba2" not in phases:
+            ap.error(f"{p} is held against the zamba2 phase: run both")
 
     import torch
 
@@ -2007,6 +2647,8 @@ def main() -> int:
         by_path["zamba2"], zamba2 = phase_zamba2(torch)
     if "zamba2_mesh" in phases:
         by_path["zamba2_mesh"] = phase_zamba2_mesh(torch, zamba2)
+    if "adaptive" in phases:
+        by_path.update(phase_adaptive(torch, zamba2))
 
     if set(phases) != set(ALL_PHASES):
         print(f"partial run ({phases}): no result line", file=sys.stderr)

@@ -10,6 +10,8 @@ Public API (what this port holds so far):
     planner     — optimal splitting k*, k° (eq. 16, problem 13/17)
     hetero      — per-worker piece allocation for unequal workers
     netplan     — network-level plan compiler (coded segments)
+    runtime     — master/worker straggler & failure simulation (§V)
+    estimate    — online shift-exp (mu, theta) fitting from telemetry
 """
 from .coding import MDSCode, ReplicationCode, LTCode
 from .schemes import (
@@ -61,6 +63,18 @@ from .planner import (
     plan_layer,
 )
 from .hetero import allocate_pieces
+from .estimate import (
+    ProfileBank,
+    WorkerProfile,
+    calibrated_params,
+    fit_shift_exp,
+)
+from .runtime import (
+    SimScenario,
+    simulate_layer,
+    simulate_layer_batch,
+    simulate_network,
+)
 
 __all__ = [
     "MDSCode", "ReplicationCode", "LTCode",
@@ -78,4 +92,7 @@ __all__ = [
     "uncoded_latency", "uncoded_latency_mc", "replication_latency_mc",
     "straggling_index_R", "plan_layer",
     "allocate_pieces",
+    "ProfileBank", "WorkerProfile", "calibrated_params", "fit_shift_exp",
+    "SimScenario", "simulate_layer", "simulate_layer_batch",
+    "simulate_network",
 ]

@@ -7,8 +7,12 @@ on injected failures.  ``FakeClock`` + ``DeterministicDelay`` make every
 §V scenario a deterministic wall-clock-free test; ``RealClock`` makes the
 k-of-n saving measurable.  ``MeshExecutor`` is the second backend: each
 coded op as one device program (all n pieces in one launch), captured as a
-CUDA graph on the card.
+CUDA graph on the card.  ``AdaptiveExecutor`` re-plans k° and the piece
+allocation from the pool's live per-piece telemetry; ``Autoscaler`` joins
+and drains workers from the queue depth.
 """
+from .adaptive import AdaptiveExecutor, AdaptivePlan, AdaptivePlanner, gemm_spec
+from .autoscale import Autoscaler, CostModel, ScaleDecision
 from .backend import CodedOp, ExecBackend, run_coded_op
 from .clock import (
     Clock,
@@ -42,6 +46,13 @@ from .pool import (
 )
 
 __all__ = [
+    "AdaptiveExecutor",
+    "AdaptivePlan",
+    "AdaptivePlanner",
+    "gemm_spec",
+    "Autoscaler",
+    "CostModel",
+    "ScaleDecision",
     "Clock",
     "FakeClock",
     "RealClock",

@@ -12,14 +12,17 @@ stragglers are cancelled.  ``executor="mesh"`` (or a
 ``repro_torch.dist.MeshExecutor``) runs each coded GEMM as one device
 program instead: encode, the n pieces in one launch, decode, replayed as a
 CUDA graph on the card.  The model runs eagerly either way.
+``adaptive=True`` wraps the pool's executor as a
+``repro_torch.dist.AdaptiveExecutor``: every coded GEMM re-solves k° and
+the piece allocation from the workers' live (mu, theta) profiles.
 
 Latency accounting is per request: ``latency_s`` measures from
 ``max(Request.arrival_s, generate() entry)`` to that request's last token,
 ``first_token_s`` to its first generated token.  Buckets are processed in
 arrival order of their earliest request.
 
-Not ported yet (ROADMAP.md, Queue A): ``adaptive=True`` (item 5), packed
-and chunked prefill and the prefix cache (item 4).
+Not ported yet (ROADMAP.md, Queue A item 4): packed and chunked prefill
+and the prefix cache.
 """
 from __future__ import annotations
 
@@ -83,8 +86,8 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params=None, *,
                  coded: tuple | None = None, scheme: str | None = None,
                  max_batch: int = 8, seed: int = 0, executor=None,
-                 adaptive: bool = False, segment: bool | None = None,
-                 device: str | torch.device = "cuda"):
+                 adaptive: bool = False, adaptive_prior=None,
+                 segment: bool | None = None, device: str | torch.device = "cuda"):
         # scheme=None means "whatever cfg.coded_scheme says"
         if scheme is not None:
             from ..core.schemes import get_scheme
@@ -128,6 +131,11 @@ class Engine:
                     "chains dispatch opaque per-piece thunks, which one "
                     "device program cannot hold")
         if adaptive:
+            if executor is None:
+                raise ValueError(
+                    "adaptive=True needs an executor= worker pool: the "
+                    "adaptive loop learns from live run telemetry "
+                    "(dist/adaptive.py), which only the pool produces")
             from ..dist.mesh_exec import MeshExecutor
 
             if isinstance(executor, MeshExecutor):
@@ -136,9 +144,21 @@ class Engine:
                     "planner fits per-worker (mu, theta) from per-piece "
                     "arrival timings, which one device program does not "
                     "produce (every lane finishes together)")
-            raise NotImplementedError(
-                "adaptive=True (online re-planning from live worker "
-                "profiles) is not ported yet (ROADMAP.md, Queue A item 5)")
+            from ..dist.adaptive import AdaptiveExecutor
+
+            if isinstance(executor, AdaptiveExecutor):
+                if adaptive_prior is not None:
+                    raise ValueError(
+                        "executor is already an AdaptiveExecutor with its "
+                        "own planner prior; pass adaptive_prior via "
+                        "AdaptiveExecutor(prior=...) instead (silently "
+                        "dropping it here would calibrate against the "
+                        "wrong prior)")
+            else:
+                # wrap the caller's pool: every coded GEMM now re-plans k°
+                # and the piece allocation from the live worker profiles
+                executor = AdaptiveExecutor(pool=executor.pool,
+                                            prior=adaptive_prior)
         if executor is not None and not cfg.coded_n:
             raise ValueError(
                 "executor= requires coded execution: pass coded=(n, k) "
