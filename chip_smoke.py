@@ -91,14 +91,38 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    with a trace sink: one real-clock run span per coded op,
                    their sum beside each ``generate``'s wall.
 
+8. ``serving``   — serving under load through ``ServingScheduler.serve``:
+                   (a) gemma-2b at full width (18 layers, d_model 2048,
+                   MQA, geglu d_ff 16384, vocab 256000), f32, seeded random
+                   weights, coded (10, 6) on the zamba2 phase's pool, 32
+                   Poisson arrivals in virtual time with prompts of 4
+                   shared 256-token prefixes and 16-256-token suffixes,
+                   served in four arms: grouped by length, packed, packed
+                   with 256-token chunks, and chunked with a prefix cache.
+                   Tokens equal across arms and to the uncoded model on 8
+                   of the requests (outside near-ties); one coded run per
+                   GEMM for a whole packed admission; chunk calls of 54
+                   runs each; prefix hits that cut runs and dispatches;
+                   every skinny-GEMM launch by (regime, variant, shape)
+                   against the design of the coded ops; TTFT, TPOT and e2e
+                   on the virtual clock and the wall; device ms and idle
+                   share from a profiled serve of each arm.  (b) Zamba2-1.2B
+                   on the zamba2 phase's weights through the scheduler's
+                   grouped path, tokens equal to ``Engine.generate``'s, 38
+                   SSD launches per prefill group.  (c) the packed arm on
+                   ``MeshExecutor(dead=(1,), stragglers=(2,))`` in f32 and
+                   with bf16 parameters: tokens equal to the pool's, one
+                   graph per (program, weight), a second serve that
+                   captures nothing and calls no kernel wrapper.
+
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  There is no fallback: no GPU, a kernel
 that does not build or launch, or any failed check ends the run with a
 non-zero exit code and no result line.
 
 ``--phases kernels,zamba2`` runs a subset (for debugging; the result line is
-only printed when every phase ran; ``zamba2_mesh`` and ``adaptive`` need
-``zamba2``).  ``--time-kernels CHECKOUT`` only times
+only printed when every phase ran; ``zamba2_mesh``, ``adaptive`` and
+``serving`` need ``zamba2``).  ``--time-kernels CHECKOUT`` only times
 the skinny GEMM, the conv and the SSD scan of the port in another checkout
 (a parent commit unpacked beside this one) at this script's f32 cases, so
 that two versions can be held against each other in one run on one card.
@@ -123,7 +147,7 @@ L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 SEED = 0
 N_WORKERS = 10
 ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16", "zamba2",
-              "zamba2_mesh", "adaptive")
+              "zamba2_mesh", "adaptive", "serving")
 
 
 def emit(obj: dict) -> None:
@@ -330,10 +354,35 @@ def gemm_cases(torch):
         ("encode unaligned X (10,6)@(6,291840)", G106, 291840, f32, False,
          True),
         ("decode (16,16) F=262144", D1616, 262144, f32, False),
-    ] + adaptive_gemm_cases(torch) + [
+    ] + serving_gemm_cases(torch, G106, D66) + adaptive_gemm_cases(torch) + [
         # the headline shape once more, last: two readings show the spread
         ("encode conv2_2 B=1 (again)", G106, 291840, f32, False),
     ]
+
+
+def serving_gemm_cases(torch, G106, D66) -> list:
+    """gemma-2b's coded FFN at (10, 6) (phase ``serving``): w_in / w_gate
+    are 2048 -> 16384, w_out 16384 -> 2048.  Packed prefill pieces of 4096
+    tokens (t_p = 682), chunk pieces at C = 256 (t_p = 42), decode pieces
+    at B = 6..8 (t_p = 1), and their encodes and decodes (the decode
+    step's F = 2048 coding shapes are Zamba2's cases already)."""
+    f32 = torch.float32
+    cases = []
+    for t_p, what in ((682, "packed prefill"), (42, "chunk C=256"),
+                      (1, "decode")):
+        for b, F in GEMMA_FFN:
+            cases.append((f"piece GEMM gemma {what} {t_p}x{b}x{F}",
+                          (t_p, b), F, f32, False))
+        cases += [(f"encode gemma {what} (10,6)@(6,{t_p}*16384)", G106,
+                   t_p * 16384, f32, False),
+                  (f"decode gemma {what} (6,6)@(6,{t_p}*16384)", D66,
+                   t_p * 16384, f32, False)]
+        if t_p > 1:
+            cases += [(f"encode gemma {what} (10,6)@(6,{t_p}*2048)", G106,
+                       t_p * 2048, f32, False),
+                      (f"decode gemma {what} (6,6)@(6,{t_p}*2048)", D66,
+                       t_p * 2048, f32, False)]
+    return cases
 
 
 # The (token count, k) of every coded GEMM the ``adaptive`` phase's Zamba2
@@ -347,6 +396,7 @@ def gemm_cases(torch):
 ADAPTIVE_PLANS = ((4096, 6), (8, 7), (8, 4), (8, 2), (8, 1), (800, 3),
                   (800, 1))
 ZAMBA2_FFN = ((2048, 8192), (8192, 2048))  # (d_in, d_out) of w_in, w_out
+GEMMA_FFN = ((2048, 16384), (16384, 2048))  # the same for gemma-2b
 
 
 def adaptive_gemm_cases(torch) -> list:
@@ -970,6 +1020,9 @@ def phase_kernels(torch) -> list[dict]:
     cases = [check_gemm(torch, timer, gen, *c) for c in gemm_cases(torch)]
     cases += [check_stacked(torch, timer, gen, t_p, b, F)
               for b, F in STACKED_W for t_p in STACKED_T_P]
+    # the mesh's stacked launch at gemma-2b's shapes (phase serving (c))
+    cases += [check_stacked(torch, timer, gen, t_p, b, F)
+              for b, F in GEMMA_FFN for t_p in (1, 42, 682)]
     cases += [check_conv(torch, timer, gen, *c) for c in conv_cases(torch)]
     cases += [check_ssd(torch, timer, gen, *c) for c in ssd_cases(torch)]
     cases += check_ssd_passes(torch, timer, gen)
@@ -1204,6 +1257,16 @@ def vgg16_uncoded_plain(torch, layers, params, x):
     return h.reshape(h.shape[0], -1) @ params["head"]
 
 
+def averages(prof):
+    """``prof.key_averages()``, grouped once per profile: the grouping
+    walks every event in Python, and each profile is read several
+    times."""
+    rows = getattr(prof, "_chip_smoke_rows", None)
+    if rows is None:
+        rows = prof._chip_smoke_rows = prof.key_averages()
+    return rows
+
+
 def device_time_of(prof) -> dict:
     """Sum of device time and the top kernels from a torch.profiler run.
     Only rows that are device kernels count: an operator row repeats the
@@ -1211,7 +1274,7 @@ def device_time_of(prof) -> dict:
     from torch.autograd import DeviceType
 
     rows = []
-    for ev in prof.key_averages():
+    for ev in averages(prof):
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
         t = getattr(ev, "self_device_time_total", None)
@@ -1223,7 +1286,7 @@ def device_time_of(prof) -> dict:
         raise RuntimeError("no device kernel rows in the profile")
     rows.sort(reverse=True)
     host = sorted(((float(ev.self_cpu_time_total), ev.key, int(ev.count))
-                   for ev in prof.key_averages()
+                   for ev in averages(prof)
                    if getattr(ev, "device_type", None) != DeviceType.CUDA),
                   reverse=True)
     return {"device_ms": sum(r[0] for r in rows) / 1e3,
@@ -1239,7 +1302,7 @@ def device_rows_named(prof, part: str) -> list[dict]:
     from torch.autograd import DeviceType
 
     rows = []
-    for ev in prof.key_averages():
+    for ev in averages(prof):
         if getattr(ev, "device_type", None) != DeviceType.CUDA \
                 or part not in ev.key:
             continue
@@ -1268,7 +1331,7 @@ def runtime_calls(prof) -> dict:
 
     return {ev.key: {"calls": int(ev.count),
                      "ms": float(ev.self_cpu_time_total) / 1e3}
-            for ev in prof.key_averages()
+            for ev in averages(prof)
             if getattr(ev, "device_type", None) != DeviceType.CUDA
             and ev.key.startswith("cuda")}
 
@@ -2547,6 +2610,574 @@ def phase_adaptive(torch, z: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: serving under load through the continuous-batching scheduler
+# ---------------------------------------------------------------------------
+
+GEMMA_K = 6
+SERVE_REQUESTS = 32
+SERVE_RATE = 0.02       # arrivals per virtual second (a coded run costs 1 s)
+SERVE_MASTER_S = 1e-3   # virtual cost of a model call's master-side work
+SERVE_BATCH = 8
+SERVE_CHUNK = 256
+SERVE_BLOCK = 16
+SERVE_ARMS = (("grouped", dict(packed=False), False),
+              ("packed", dict(packed=True), False),
+              ("chunked", dict(packed=True, chunk_tokens=SERVE_CHUNK), False),
+              ("cached", dict(packed=True, chunk_tokens=SERVE_CHUNK), True))
+SERVE_SAMPLE = tuple(range(0, SERVE_REQUESTS, SERVE_REQUESTS // 8))
+ZAMBA2_SERVE_REQUESTS = 8
+
+
+def gemma_workload(vocab: int):
+    """32 Poisson arrivals in virtual time; prompts of 4 shared 256-token
+    prefix families (Zipf a = 1.2) and a fresh 16-256-token suffix; 8-16
+    new tokens each."""
+    from repro_torch.serving import (LengthDist, PoissonArrivals,
+                                     SharedPrefixDist, Workload)
+
+    return Workload(
+        PoissonArrivals(SERVE_RATE), LengthDist.fixed(1),
+        LengthDist(tuple(range(8, 17))), vocab=vocab, seed=SEED + 31,
+        shared_prefix=SharedPrefixDist(
+            4, 256, LengthDist(tuple(range(16, 257))), zipf_a=1.2,
+            vocab=vocab, seed=SEED + 32))
+
+
+def wall_scheduler():
+    """``ServingScheduler`` that also reads the wall clock at each step's
+    start and at each model call's end, keyed by the virtual instant (each
+    call advances it by at least ``master_call_s``, so the keys differ):
+    a request's wall TTFT and e2e run from its admission step's start."""
+    from repro_torch.serving import ServingScheduler
+
+    class WallTimed(ServingScheduler):
+        def serve(self, requests):
+            self.step_wall, self.call_wall = {}, {}
+            self.w0 = time.perf_counter()
+            return super().serve(requests)
+
+        def _apply_membership(self, idx, t, qdepth, membership):
+            self.step_wall[t] = time.perf_counter() - self.w0
+            return super()._apply_membership(idx, t, qdepth, membership)
+
+        def _timed_call(self, fn, *args, at=None):
+            out, dt = super()._timed_call(fn, *args, at=at)
+            self.call_wall[at + dt] = time.perf_counter() - self.w0
+            return out, dt
+
+        def wall_metrics(self, res) -> dict:
+            from repro_torch.serving import percentiles
+
+            ttft, e2e, tpot = [], [], []
+            for r in res.records:
+                a = self.step_wall[r.admit_s]
+                f, d = self.call_wall[r.first_token_s], self.call_wall[r.done_s]
+                ttft.append(f - a)
+                e2e.append(d - a)
+                if r.n_tokens > 1:
+                    tpot.append((d - f) / (r.n_tokens - 1))
+            return {"ttft_s": percentiles(ttft), "tpot_s": percentiles(tpot),
+                    "e2e_s": percentiles(e2e)}
+
+    return WallTimed
+
+
+def record_coded_ops(ex) -> list:
+    """(t_p, d_in, d_out) of every coded op ``ex`` runs, until
+    ``del ex.run_op``."""
+    ops, run_op = [], ex.run_op
+
+    def recording(op):
+        ops.append((op.x.shape[1], op.w.shape[0], op.w.shape[1]))
+        return run_op(op)
+
+    ex.run_op = recording
+    return ops
+
+
+def coded_op_design(torch, ops, live: int):
+    """The skinny-GEMM launches the design implies for ``ops`` on the
+    pool: per op one encode (10, 6) @ (6, t_p d_in), one piece GEMM per
+    live worker (every live worker computes its piece on the virtual
+    clock, the straggler too) and one decode (6, 6) @ (6, t_p d_out),
+    each at the plan ``piece_plan`` gives its shape."""
+    import collections
+
+    want = collections.Counter()
+    for t_p, d_in, d_out in ops:
+        want[gemm_key(torch, N_WORKERS, GEMMA_K, t_p * d_in)] += 1
+        want[gemm_key(torch, t_p, d_in, d_out)] += live
+        want[gemm_key(torch, GEMMA_K, GEMMA_K, t_p * d_out)] += 1
+    return want
+
+
+def tally_held(torch, tally) -> dict:
+    """Launches of the shapes the ``kernels`` phase holds as cases."""
+    held = set()
+    for _, A_src, F, *_ in gemm_cases(torch):
+        m, b = A_src if isinstance(A_src, tuple) else A_src.shape
+        held.add((m, b, F))
+    return {f"{m}x{b}x{F}": n for (_, _, m, b, F), n
+            in sorted(tally.counts.items()) if (m, b, F) in held}
+
+
+def tally_summary(tally) -> list:
+    """Launches by (regime, variant), with the shapes' range."""
+    import collections
+
+    by = collections.defaultdict(lambda: [0, set()])
+    for (r, v, m, b, F), n in tally.counts.items():
+        by[(r, v)][0] += n
+        by[(r, v)][1].add((m, b, F))
+    return [{"regime": r, "variant": v, "launches": n,
+             "shapes": len(shapes), "m": [min(s[0] for s in shapes),
+                                          max(s[0] for s in shapes)]}
+            for (r, v), (n, shapes) in sorted(by.items())]
+
+
+def uncoded_logits(torch, cfg, params, prompt, generated) -> "torch.Tensor":
+    """The uncoded model's next-token logits after ``prompt`` and
+    ``generated``."""
+    import numpy as np
+    from repro_torch.models import model as M
+
+    seq = np.concatenate([np.asarray(prompt, np.int64),
+                          np.asarray(generated, np.int64)])
+    toks = torch.as_tensor(seq[None], device="cuda")
+    logits, _ = M.prefill(cfg, params, toks, max_seq=len(seq))
+    return logits[0, 0, : cfg.vocab]
+
+
+def hold_tokens(torch, cfg, params, reqs, got: dict, want: dict,
+                label: str) -> dict:
+    """Each request's tokens equal, outside near-ties: where two token
+    lists first differ, both tokens must be within 1e-3 max|logit| of the
+    top of the uncoded model's logits there (two coded runs of other
+    batch shapes round differently; such a tie may go either way, and the
+    request then continues on its own)."""
+    by_rid = {r.rid: r for r in reqs}
+    equal, ties = 0, []
+    for rid, a in want.items():
+        b = got[rid]
+        if a == b:
+            equal += 1
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y) \
+            if len(a) == len(b) else None
+        require(j is not None, f"{label}: request {rid} has {len(b)} "
+                               f"tokens, {len(a)} expected")
+        ref = uncoded_logits(torch, cfg, params, by_rid[rid].prompt, a[:j])
+        tol = 1e-3 * float(ref.abs().max())
+        top = float(ref.max())
+        gap = max(top - float(ref[a[j]]), top - float(ref[b[j]]))
+        require(gap <= tol, f"{label}: request {rid} differs at token {j} "
+                            f"({a[j]} vs {b[j]}) outside a near-tie: gap "
+                            f"{gap} > {tol}")
+        ties.append({"rid": rid, "at": j, "gap": gap, "tol": tol})
+    return {"requests": len(want), "equal": equal, "near_ties": ties}
+
+
+def serve_once(torch, sched, reqs, *, profile=False):
+    """One serve of copies of ``reqs``: (result, wall s, profile or
+    None)."""
+    import dataclasses
+
+    copies = [dataclasses.replace(r) for r in reqs]
+    torch.cuda.synchronize()
+    if not profile:
+        t0 = time.perf_counter()
+        res = sched.serve(copies)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, None
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    # device activity only, read from the profiler's raw records: a serve
+    # launches ~10^5 kernels, and turning every record into a Python event
+    # (``prof.events()``, ``key_averages``) costs ~30x the walk below
+    with tprof(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = sched.serve(copies)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = collections.Counter()
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and not ev.is_hidden_event():
+            by_name[ev.name()] += ev.duration_ns()
+    require(bool(by_name), "serve: no device kernel rows in the profile")
+    device_ms = sum(by_name.values()) / 1e6
+    return res, wall, {"wall_ms": wall * 1e3, "device_ms": device_ms,
+                       "idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
+                       "top": [{"name": k[:60], "ms": t / 1e6}
+                               for k, t in by_name.most_common(4)]}
+
+
+def tokens_of(res) -> dict:
+    return {c.rid: c.tokens.tolist() for c in res.completions}
+
+
+def step_rows(res) -> dict:
+    s = res.steps
+    return {"steps": len(s), "runs": sum(x.runs for x in s),
+            "dispatches": sum(x.dispatches for x in s),
+            "prefill_runs": sum(x.prefill_runs for x in s),
+            "prefill_dispatches": sum(x.prefill_dispatches for x in s),
+            "max_prefill_runs_in_a_step": max(x.prefill_runs for x in s),
+            "max_chunks_in_a_step": max(x.prefill_chunks for x in s),
+            "packed_tokens": sum(x.packed_tokens for x in s),
+            "packed_pad_tokens": sum(x.packed_pad_tokens for x in s),
+            "prefix_hit_tokens": sum(x.prefix_hit_tokens for x in s),
+            "batch_mean": sum(x.batch for x in s) / len(s),
+            "t_end_virtual_s": res.t_end}
+
+
+def serving_gemma(torch) -> tuple:
+    """(a) gemma-2b at full width, f32, MDS (10, 6) on the zamba2 phase's
+    pool (FakeClock, dead worker 1, 50x straggler 2), four arms."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import FakeClock
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, PrefixCache, summarize
+
+    cfg = dataclasses.replace(get_config("gemma-2b"), dtype=torch.float32)
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.hd, cfg.d_ff, cfg.vocab)
+            == (18, 2048, 8, 1, 256, 16384, 256000),
+            "gemma-2b at full width")
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 30))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    wl = gemma_workload(cfg.vocab)
+    reqs = wl.generate(SERVE_REQUESTS)
+    gemms = 3 * cfg.n_layers
+    WallTimed = wall_scheduler()
+    ex = make_executor(FakeClock())
+    live = N_WORKERS - len(ex.pool.fault_plan.dead)
+    arms, counts_all = {}, {}
+    try:
+        eng = Engine(cfg, params, coded=(N_WORKERS, GEMMA_K), executor=ex)
+        for name, kw, cached in SERVE_ARMS:
+            cache = PrefixCache(block=SERVE_BLOCK) if cached else None
+            sched = WallTimed(eng, max_seq=wl.max_seq, max_batch=SERVE_BATCH,
+                              master_call_s=SERVE_MASTER_S,
+                              prefix_cache=cache, **kw)
+            ops = record_coded_ops(ex)
+            # one serve of each arm, profiled: its device ms and idle
+            # share come from the same run as its counts and walls
+            with LaunchTally() as tally:
+                zero_launch_counters()
+                res, wall, prof = serve_once(torch, sched, reqs,
+                                             profile=True)
+                counts = read_launch_counters()
+            del ex.run_op
+            want = coded_op_design(torch, ops, live)
+            require(dict(tally.counts) == dict(want),
+                    f"serving {name}: skinny-GEMM launches by (regime, "
+                    f"variant, shape) differ from the design of its "
+                    f"{len(ops)} coded ops")
+            require(counts["skinny_gemm"] == sum(want.values()) > 0,
+                    f"serving {name}: {counts['skinny_gemm']} skinny-GEMM "
+                    f"launches, the design implies {sum(want.values())}")
+            require(all(k[1] == "narrow" for k in tally.counts
+                        if k[0] == "coding"),
+                    f"serving {name}: a coding launch was not `narrow`")
+            require(len(ops) == sum(s.runs for s in res.steps),
+                    f"serving {name}: {len(ops)} coded ops, "
+                    f"{sum(s.runs for s in res.steps)} runs booked")
+            for k, v in counts.items():
+                counts_all[k] = counts_all.get(k, 0) + v
+            arms[name] = {"res": res, "wall": wall, "sched": sched,
+                          "cache": cache, "tally": tally, "counts": counts,
+                          "profile": prof}
+    finally:
+        ex.close()
+
+    # ---- checks --------------------------------------------------------
+    toks = {name: tokens_of(a["res"]) for name, a in arms.items()}
+    require(all(len(t) == SERVE_REQUESTS for t in toks.values()),
+            "serving: an arm lost requests")
+    across = {name: hold_tokens(torch, cfg, params, reqs, toks[name],
+                                toks["grouped"], f"serving {name}")
+              for name in toks if name != "grouped"}
+    sample = [r for r in reqs if r.rid in SERVE_SAMPLE]
+    plain = Engine(dataclasses.replace(cfg, coded_n=0, coded_k=0), params)
+    uncoded = {c.rid: c.tokens.tolist() for c in plain.generate(
+        [dataclasses.replace(r) for r in sample])}
+    vs_uncoded = {name: hold_tokens(
+        torch, cfg, params, reqs, {rid: toks[name][rid] for rid in uncoded},
+        uncoded, f"serving {name} vs uncoded") for name in toks}
+    # one coded run per GEMM for a whole packed admission, however many
+    # lengths it holds; the grouped arm pays one per distinct length
+    lens = {r.rid: len(r.prompt) for r in reqs}
+    mixed = 0
+    for name in ("grouped", "packed"):
+        res = arms[name]["res"]
+        for st in res.steps:
+            cold = [r for r in res.records
+                    if r.admit_s == st.t_start and st.admitted]
+            if not st.admitted:
+                continue
+            distinct = len({lens[r.rid] for r in cold})
+            want = gemms * (1 if name == "packed" else distinct)
+            require(st.prefill_runs == want
+                    and st.prefill_dispatches == want * N_WORKERS,
+                    f"serving {name} step {st.step}: {st.prefill_runs} "
+                    f"prefill runs, {st.prefill_dispatches} dispatches for "
+                    f"{len(cold)} prompts of {distinct} lengths (design "
+                    f"{want}, {want * N_WORKERS})")
+            if name == "packed" and distinct > 1:
+                mixed += 1
+    require(mixed > 0, "serving packed: no admission mixed lengths")
+    # chunked prefill: every prompt (> 256 tokens) streams; each chunk of
+    # <= 256 tokens is one call of 54 coded runs
+    for name in ("chunked", "cached"):
+        for st in arms[name]["res"].steps:
+            require(st.packed_tokens == 0
+                    and st.prefill_runs == gemms * st.prefill_chunks,
+                    f"serving {name} step {st.step}: {st.prefill_runs} "
+                    f"prefill runs for {st.prefill_chunks} chunks")
+    pc = arms["cached"]["cache"]
+    r3, r4 = step_rows(arms["chunked"]["res"]), step_rows(arms["cached"]["res"])
+    require(pc.stats.hits > 0 and r4["prefix_hit_tokens"] > 0,
+            "serving cached: no prefix hit")
+    require(r4["runs"] < r3["runs"] and r4["dispatches"] < r3["dispatches"],
+            f"serving cached: {r4['runs']} runs / {r4['dispatches']} "
+            f"dispatches, not below chunked's {r3['runs']} / "
+            f"{r3['dispatches']}")
+
+    out = {}
+    for name, a in arms.items():
+        res = a["res"]
+        summ = summarize(res)
+        out[name] = {
+            **step_rows(res), "wall_s": a["wall"],
+            "virtual": {k: summ[k] for k in ("ttft_s", "tpot_s", "e2e_s")},
+            "wall_from_admission": a["sched"].wall_metrics(res),
+            "prefix_cache": (dataclasses.asdict(a["cache"].stats)
+                             | {"bytes": a["cache"].bytes,
+                                "blocks": a["cache"].n_blocks}
+                             if a["cache"] is not None else None),
+            "profile": a["profile"], "launches": a["counts"],
+            "skinny_gemm_by_regime": tally_summary(a["tally"]),
+            "launches_of_kernels_cases": tally_held(torch, a["tally"]),
+            "tokens_vs_grouped": across.get(name),
+            "sample_vs_uncoded": vs_uncoded[name]}
+    emit({"phase": "serving", "part": "a: gemma-2b",
+          "model": "gemma-2b, 18 layers, d_model 2048, 8 heads, MQA, "
+                   "head_dim 256, geglu d_ff 16384, vocab 256000, f32, "
+                   "seeded random weights",
+          "params": M.param_count(params), "init_s": init_s,
+          "coded": {"scheme": "mds", "n": N_WORKERS, "k": GEMMA_K,
+                    "faults": "dead={1}, straggler={2: 50x}",
+                    "clock": "FakeClock + DeterministicDelay(1.0)",
+                    "master_call_s": SERVE_MASTER_S},
+          "traffic": {"requests": SERVE_REQUESTS, "poisson_rate": SERVE_RATE,
+                      "families": 4, "prefix": 256, "suffix": [16, 256],
+                      "zipf_a": 1.2, "max_new": [8, 16],
+                      "max_batch": SERVE_BATCH, "max_seq": wl.max_seq,
+                      "prompt_tokens": sum(lens.values())},
+          "nvidia_smi": nvidia_smi_line(), "arms": out})
+    gemma = {"cfg": cfg, "params": params, "reqs": reqs,
+             "max_seq": wl.max_seq, "packed": toks["packed"],
+             "packed_wall_s": arms["packed"]["wall"]}
+    return counts_all, gemma
+
+
+def serving_zamba2(torch, z) -> dict:
+    """(b) Zamba2-1.2B through the scheduler: the zamba2 phase's weights
+    and pool configuration, 8 requests of 64-512 tokens.  ``packed=None``
+    picks the grouped path (an SSM's state integrates padding)."""
+    import dataclasses
+
+    from repro_torch.dist import FakeClock
+    from repro_torch.serving import (Engine, LengthDist, PoissonArrivals,
+                                     Workload, summarize)
+
+    cfg, params = z["cfg"], z["params"]
+    wl = Workload(PoissonArrivals(SERVE_RATE),
+                  LengthDist(tuple(range(64, 513, 64))),
+                  LengthDist(tuple(range(8, 17))), vocab=cfg.vocab,
+                  seed=SEED + 40)
+    reqs = wl.generate(ZAMBA2_SERVE_REQUESTS)
+    ex = make_executor(FakeClock())
+    try:
+        eng = Engine(cfg, params, coded=(N_WORKERS, ZAMBA2_K), executor=ex)
+        sched = wall_scheduler()(eng, max_seq=wl.max_seq,
+                                 max_batch=SERVE_BATCH,
+                                 master_call_s=SERVE_MASTER_S)
+        require(not sched.packed, "zamba2: packed=None chose packing")
+        groups, prefill_batch = [], eng.prefill_batch
+        eng.prefill_batch = lambda p, ms: (groups.append(p.shape),
+                                           prefill_batch(p, ms))[1]
+        zero_launch_counters()
+        res, wall, _ = serve_once(torch, sched, reqs)
+        counts = read_launch_counters()
+        del eng.prefill_batch
+        served = tokens_of(res)
+        t0 = time.perf_counter()
+        gen = {c.rid: c.tokens.tolist() for c in eng.generate(
+            [dataclasses.replace(r) for r in reqs])}
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+    finally:
+        ex.close()
+    require(counts["ssd_chunk"] == cfg.n_layers * len(groups) > 0,
+            f"zamba2 serve: {counts['ssd_chunk']} SSD launches for "
+            f"{len(groups)} prefill groups (design {cfg.n_layers} each)")
+    for p in ("cb", "states", "state_pass", "out"):
+        require(counts[f"ssd_chunk.{p}"] == counts["ssd_chunk"],
+                f"zamba2 serve: SSD pass {p} launched "
+                f"{counts[f'ssd_chunk.{p}']} times")
+    require(counts["skinny_gemm"] > 0, "zamba2 serve: no coded GEMM ran")
+    held = hold_tokens(torch, cfg, params, reqs, served, gen,
+                       "zamba2 serve vs generate")
+    summ = summarize(res)
+    out = {"phase": "serving", "part": "b: zamba2-1.2b",
+           "requests": len(reqs), "prompts": [len(r.prompt) for r in reqs],
+           "packed": sched.packed, "prefill_groups": [list(g) for g in groups],
+           **step_rows(res), "wall_s": wall, "generate_wall_s": gen_wall,
+           "virtual": {k: summ[k] for k in ("ttft_s", "tpot_s", "e2e_s")},
+           "wall_from_admission": sched.wall_metrics(res),
+           "launches": counts, "tokens_vs_generate": held}
+    emit(out)
+    return counts
+
+
+def modeled_mesh():
+    """``MeshExecutor`` whose runs are booked at the pool's modeled time:
+    every coded run of the FakeClock pool (DeterministicDelay(1.0), k of
+    the healthy workers first) completes at 1.0 s, so the scheduler lays
+    out the same steps, groups and shapes on the mesh as on the pool, and
+    a second serve replays every graph of the first."""
+    from repro_torch.dist import FakeClock, MeshExecutor
+
+    class ModeledMesh(MeshExecutor):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.pool.clock = FakeClock()
+
+        def _book(self, scheme, subset, wall):
+            self.walls.append(wall)
+            super()._book(scheme, subset, 1.0)
+
+    mx = ModeledMesh(dead=(1,), stragglers=(2,))
+    mx.walls = []
+    return mx
+
+
+def mesh_serves(torch, cfg, params, reqs, max_seq, want_tokens,
+                label) -> dict:
+    """Serve the packed arm twice on a modeled mesh: tokens equal to
+    ``want_tokens``; one graph per (program, weight); the second serve
+    captures nothing and calls no kernel wrapper."""
+    from repro_torch.serving import Engine, ServingScheduler
+
+    mx = modeled_mesh()
+    gkeys, pkeys, run_op = set(), set(), mx.run_op
+
+    def keyed(op):
+        key = mx._key(op, mx._subset(op.scheme))
+        pkeys.add(key)
+        gkeys.add(key + (op.w.data_ptr(),))
+        return run_op(op)
+
+    mx.run_op = keyed
+    rows = []
+    try:
+        eng = Engine(cfg, params, coded=(N_WORKERS, GEMMA_K), executor=mx)
+        for serve in ("first (captures)", "replayed"):
+            sched = ServingScheduler(eng, max_seq=max_seq,
+                                     max_batch=SERVE_BATCH,
+                                     master_call_s=SERVE_MASTER_S,
+                                     packed=True)
+            g0, r0, w0 = mx.graph_count, mx.replay_count, len(mx.walls)
+            zero_launch_counters()
+            res, wall, _ = serve_once(torch, sched, reqs)
+            counts = read_launch_counters()
+            require(tokens_of(res) == want_tokens,
+                    f"{label} {serve}: the mesh served other tokens than "
+                    "the pool")
+            require(mx.graph_count == len(gkeys)
+                    and mx.compile_count == len(pkeys),
+                    f"{label}: {mx.graph_count} graphs / "
+                    f"{mx.compile_count} programs for {len(gkeys)} "
+                    f"(program, weight) pairs / {len(pkeys)} programs")
+            runs = sum(s.runs for s in res.steps)
+            if serve == "replayed":
+                require(mx.graph_count == g0, f"{label}: the second serve "
+                                              "captured new graphs")
+                require(counts["skinny_gemm"] == 0
+                        and counts["piece_gemm_stacked"] == 0,
+                        f"{label}: a wrapper was called in a replayed "
+                        f"serve: {counts}")
+            require(mx.replay_count - r0 == runs, f"{label} {serve}: "
+                    f"{mx.replay_count - r0} replays for {runs} runs")
+            walls = mx.walls[w0:]
+            rows.append({"serve": serve, "wall_s": wall, "runs": runs,
+                         "graphs_captured": mx.graph_count - g0,
+                         "run_wall_ms": t_compute_stats(walls),
+                         "launches": counts})
+    finally:
+        mx.close()
+    return {"programs": len(pkeys), "graphs": len(gkeys), "serves": rows,
+            "first_launches": rows[0]["launches"]}
+
+
+def serving_mesh(torch, gemma) -> dict:
+    """(c) The packed arm on the one-program backend, f32 and bf16."""
+    import dataclasses
+
+    from repro_torch.dist import FakeClock
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, ServingScheduler
+
+    cfg, reqs, max_seq = gemma["cfg"], gemma["reqs"], gemma["max_seq"]
+    f32 = mesh_serves(torch, cfg, gemma["params"], reqs, max_seq,
+                      gemma["packed"], "mesh f32")
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    params16 = M.init_params(
+        cfg16, torch.Generator(device="cuda").manual_seed(SEED + 33))
+    ex = make_executor(FakeClock())
+    try:
+        eng = Engine(cfg16, params16, coded=(N_WORKERS, GEMMA_K), executor=ex)
+        sched = ServingScheduler(eng, max_seq=max_seq, max_batch=SERVE_BATCH,
+                                 master_call_s=SERVE_MASTER_S, packed=True)
+        res, pool_wall, _ = serve_once(torch, sched, reqs)
+    finally:
+        ex.close()
+    bf16 = mesh_serves(torch, cfg16, params16, reqs, max_seq, tokens_of(res),
+                       "mesh bf16")
+    del params16
+    emit({"phase": "serving", "part": "c: mesh",
+          "setup": "MeshExecutor(dead=(1,), stragglers=(2,)), runs booked "
+                   "at the pool's modeled 1.0 s, packed arm",
+          "f32": f32, "f32_pool_wall_s": gemma["packed_wall_s"],
+          "bf16": bf16, "bf16_pool_wall_s": pool_wall,
+          "bf16_pool_steps": step_rows(res)})
+    counts = {}
+    for part in (f32, bf16):
+        for k, v in part["first_launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def phase_serving(torch, z: dict) -> dict:
+    """Parts (a) to (c), one JSON line each; returns the counted paths'
+    launches."""
+    counts_a, gemma = serving_gemma(torch)
+    counts_b = serving_zamba2(torch, z)
+    counts_c = serving_mesh(torch, gemma)
+    return {"serving_gemma": counts_a, "serving_zamba2": counts_b,
+            "serving_mesh": counts_c}
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_META = {
     "skinny_gemm": {
@@ -2613,7 +3244,7 @@ def main() -> int:
     for p in phases:
         if p not in ALL_PHASES:
             ap.error(f"unknown phase {p!r}")
-    for p in ("zamba2_mesh", "adaptive"):
+    for p in ("zamba2_mesh", "adaptive", "serving"):
         if p in phases and "zamba2" not in phases:
             ap.error(f"{p} is held against the zamba2 phase: run both")
 
@@ -2636,25 +3267,41 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
 
-    device = phase_device(torch) if "device" in phases else None
-    cases = phase_kernels(torch) if "kernels" in phases else None
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"chip_smoke: phase {name} took {seconds[name]} s",
+              file=sys.stderr, flush=True)
+        return out
+
+    device = timed("device", phase_device, torch) \
+        if "device" in phases else None
+    cases = timed("kernels", phase_kernels, torch) \
+        if "kernels" in phases else None
     if "coded_ops" in phases:
-        phase_coded_ops(torch)
+        timed("coded_ops", phase_coded_ops, torch)
     by_path = {}
     if "vgg16" in phases:
-        by_path["vgg16"] = phase_vgg16(torch)
+        by_path["vgg16"] = timed("vgg16", phase_vgg16, torch)
     if "zamba2" in phases:
-        by_path["zamba2"], zamba2 = phase_zamba2(torch)
+        by_path["zamba2"], zamba2 = timed("zamba2", phase_zamba2, torch)
     if "zamba2_mesh" in phases:
-        by_path["zamba2_mesh"] = phase_zamba2_mesh(torch, zamba2)
+        by_path["zamba2_mesh"] = timed("zamba2_mesh", phase_zamba2_mesh,
+                                       torch, zamba2)
     if "adaptive" in phases:
-        by_path.update(phase_adaptive(torch, zamba2))
+        by_path.update(timed("adaptive", phase_adaptive, torch, zamba2))
+    if "serving" in phases:
+        by_path.update(timed("serving", phase_serving, torch, zamba2))
 
     if set(phases) != set(ALL_PHASES):
         print(f"partial run ({phases}): no result line", file=sys.stderr)
         return 0
     emit(kernels_line(cases, by_path))
-    emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1)})
+    emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1),
+          "phase_seconds": seconds})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,8 @@
 """Architecture config registry (``--arch <id>``).
 
 Only the configurations whose every module is ported are registered; the
-reference's others (gemma-2b, minicpm-2b, dbrx-132b, qwen3-32b,
-deepseek-coder-33b, musicgen-medium, kimi-k2-1t-a32b, internvl2-1b) wait
-for MoE, the frontends and the remaining attention forms (ROADMAP.md,
-Queue A item 8).
+reference's others (dbrx-132b and kimi-k2-1t-a32b with MoE, musicgen-medium
+and internvl2-1b with their frontends) wait for ROADMAP.md, Queue A item 3.
 """
 from __future__ import annotations
 
@@ -14,8 +12,12 @@ from ..models.model import ModelConfig
 from .base import INPUT_SHAPES, InputShape, for_shape, smoke_variant, LONG_WINDOW
 
 _MODULES = {
+    "gemma-2b": "gemma_2b",
     "zamba2-1.2b": "zamba2_1p2b",
     "mamba2-2.7b": "mamba2_2p7b",
+    "minicpm-2b": "minicpm_2b",
+    "qwen3-32b": "qwen3_32b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
 }
 
 ARCHS = tuple(_MODULES)

@@ -54,7 +54,10 @@ def coded_matmul(
     worker GEMMs, under any registered scheme.
 
     x: (T, d_in), w: (d_in, d_out).  The remainder rows (T mod k) are
-    computed by the master (paper footnote 2).
+    computed by the master (paper footnote 2).  ``w`` may be the model's
+    source weight in another type than ``x`` (bf16 parameters): it is cast
+    to ``x``'s type where the pieces run — inside the backend's op on an
+    executor, here for the functional form and the master's remainder.
 
     With ``executor`` (a ``repro_torch.dist.CodedExecutor``) the n GEMM
     subtasks run on the worker pool and the decode consumes the first
@@ -76,8 +79,9 @@ def coded_matmul(
         y = decoded.reshape(code.k * plan.w_out_p, w.shape[-1])
         _count_op("decode")
         if plan.remainder is not None:
-            y = torch.cat([y, x[plan.remainder.a_i :] @ w], dim=0)
+            y = torch.cat([y, x[plan.remainder.a_i :] @ w.to(x.dtype)], dim=0)
         return y
+    w = w.to(x.dtype)
     coded_in = _encode_tokens(code, x, plan)  # (n, T_p, d_in)
     _count_op("encode")
     if executor is not None:
@@ -133,6 +137,10 @@ def coded_ffn_segment(
             "use per-GEMM coded_matmul (decode before each activation)")
     T = x.shape[0]
     plan = plan_token_split(T, code.k)
+    # source weights (bf16 parameters) are cast to x's type here, once
+    w_in, w_out = w_in.to(x.dtype), w_out.to(x.dtype)
+    if w_gate is not None:
+        w_gate = w_gate.to(x.dtype)
 
     def chain(xt: torch.Tensor) -> torch.Tensor:
         h = xt @ w_in

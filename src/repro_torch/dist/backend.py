@@ -42,6 +42,10 @@ class CodedOp:
     The decoded result a backend must return is the (k,) + piece-shape
     stack of recovered source outputs — exactly what
     ``core.schemes.decode_blocks`` yields from the first decodable subset.
+
+    ``w`` is the model's source weight in its own type (bf16 parameters
+    stay bf16); a backend computes with :meth:`weight`, which casts it to
+    the inputs' type inside the op, as the reference's jitted step does.
     """
 
     kind: str
@@ -57,6 +61,10 @@ class CodedOp:
             raise ValueError(f"unknown CodedOp kind: {self.kind!r}")
         if self.kind == "conv2d" and self.spec is None:
             raise ValueError("conv2d CodedOp requires a ConvSpec")
+
+    def weight(self) -> torch.Tensor:
+        """``w`` in the type of ``x`` (``w`` itself when they agree)."""
+        return self.w if self.w.dtype == self.x.dtype else self.w.to(self.x.dtype)
 
 
 @runtime_checkable
@@ -111,11 +119,13 @@ def run_coded_op(executor: Any, op: CodedOp) -> torch.Tensor:
         coded_in = op.scheme.encode(op.x.reshape(op.x.shape[0], -1)).reshape(
             op.scheme.n, op.x.shape[1], op.x.shape[2]
         )
-        fns = [lambda i=i: coded_in[i] @ op.w for i in range(op.scheme.n)]
+        w = op.weight()
+        fns = [lambda i=i: coded_in[i] @ w for i in range(op.scheme.n)]
     else:
         coded_in = coded_conv._encode_partitions(op.scheme, op.x)
+        w = op.weight()
         fns = [
-            lambda i=i: coded_conv.conv2d(coded_in[i], op.w, op.spec.stride)
+            lambda i=i: coded_conv.conv2d(coded_in[i], w, op.spec.stride)
             for i in range(op.scheme.n)
         ]
     return executor.run(

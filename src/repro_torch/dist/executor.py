@@ -196,6 +196,7 @@ class CodedExecutor:
         from ..kernels.skinny_gemm import skinny_gemm
 
         scheme = op.scheme
+        w = op.weight()  # the source weight, cast once per run
         if op.kind == "matmul":
             k, t_p, d = op.x.shape
             coded_in = scheme.encode(op.x.reshape(k, -1)).reshape(scheme.n, t_p, d)
@@ -204,12 +205,12 @@ class CodedExecutor:
             # reduction order fixed by t_p's regime and d_in — a library
             # `@` picks a shape-dependent algorithm, which breaks
             # byte-for-byte equality across backends
-            fns = [lambda i=i: skinny_gemm(coded_in[i], op.w)
+            fns = [lambda i=i: skinny_gemm(coded_in[i], w)
                    for i in range(scheme.n)]
         else:
             coded_in = _encode_partitions(scheme, op.x)
             fns = [
-                lambda i=i: conv2d(coded_in[i], op.w, op.spec.stride)
+                lambda i=i: conv2d(coded_in[i], w, op.spec.stride)
                 for i in range(scheme.n)
             ]
         return self.run(scheme, fns, assignment=op.assignment,

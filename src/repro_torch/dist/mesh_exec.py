@@ -57,9 +57,12 @@ from .pool import Arrival, RunReport, Undecodable
 
 __all__ = ["MeshExecutor"]
 
-# CUDA graphs one executor keeps, least recently replayed dropped first:
-# served Zamba2-1.2B needs 9 (three token counts x three FFN weights)
-MAX_GRAPHS = 64
+# CUDA graphs one executor keeps, least recently replayed dropped first.  A
+# graph owns no buffer (its program's input and output are shared by every
+# weight, its intermediates are the shared pool's), so the bound is on
+# graph objects: served Zamba2-1.2B keeps 9 (three token counts x three FFN
+# weights), gemma-2b under load ~1,100 (54 FFN weights x ~20 token counts)
+MAX_GRAPHS = 4096
 
 
 class _MeshFleet:
@@ -101,14 +104,24 @@ def _scheme_key(scheme) -> tuple:
 
 
 @dataclasses.dataclass
+class _Static:
+    """A program's input and output buffers, shared by the graphs of every
+    weight the program runs with and allocated outside the graphs' memory
+    pool: replay after copying the op's sources into ``x``; ``out`` holds
+    the decoded stack until the next replay of a graph of this program."""
+
+    x: torch.Tensor
+    out: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
 class _Graph:
-    """One captured program: replay after copying the op's sources into
-    ``x``; ``out`` holds the decoded stack until the next replay of any
-    graph of the executor (they share one memory pool)."""
+    """One captured program for one weight.  Its intermediates live in the
+    executor's one graph memory pool and are free for the next capture to
+    reuse (runs never overlap, and nothing reads an intermediate after
+    its replay), so a graph keeps no memory of its own alive."""
 
     graph: "torch.cuda.CUDAGraph"
-    x: torch.Tensor
-    out: torch.Tensor
     # kept alive while the graph may replay: the weight whose pointer the
     # graph baked in, and the device copies of the coding matrices and
     # gather indices it reads (core/coding.py may drop its cache)
@@ -171,13 +184,16 @@ class MeshExecutor:
         self.replay_count = 0
         self._programs: set = set()
         self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._static: dict = {}
         self._pool_handle = None
+        self._capture_stream = None
         self._chain_t = 0.0
 
     # -- executor contract (dist/backend.py) --------------------------------
     def close(self) -> None:
         self._programs.clear()
         self._graphs.clear()
+        self._static.clear()
 
     def __enter__(self) -> "MeshExecutor":
         return self
@@ -238,8 +254,9 @@ class MeshExecutor:
     # -- the program ---------------------------------------------------------
     @staticmethod
     def program(op, subset: Sequence[int], x: torch.Tensor) -> torch.Tensor:
-        """The op's program, eagerly: encode (the threaded ``run_op``'s
-        call), every piece in one launch, gather ``subset``, decode.  The
+        """The op's program, eagerly: the weight's cast to ``x``'s type
+        (none for f32), encode (the threaded ``run_op``'s call), every
+        piece in one launch, gather ``subset``, decode.  The
         reference multiplies the pieces by a 0/1 lane mask before its
         gather; ``x * 1.0`` changes no bit and the gather never reads a
         masked lane, so the mask is left out."""
@@ -249,13 +266,17 @@ class MeshExecutor:
         from ..kernels.skinny_gemm import piece_gemm_stacked
 
         scheme = op.scheme
+        # the weight's cast to the inputs' type runs inside the program (a
+        # bf16 weight's graph holds its cast): the graph is keyed by the
+        # source weight's pointer and type, and no f32 copy outlives a run
+        w = op.weight()
         if op.kind == "matmul":
             k, t_p, d = x.shape
             coded = scheme.encode(x.reshape(k, -1)).reshape(scheme.n, t_p, d)
-            pieces = piece_gemm_stacked(coded, op.w)
+            pieces = piece_gemm_stacked(coded, w)
         else:
             coded = _encode_partitions(scheme, x)
-            pieces = conv2d_stacked(coded, op.w, op.spec.stride)
+            pieces = conv2d_stacked(coded, w, op.spec.stride)
         gathered = pieces.index_select(0, device_index(subset, pieces.device))
         return decode_blocks(scheme, list(subset), gathered)
 
@@ -265,48 +286,67 @@ class MeshExecutor:
                 str(op.x.dtype), tuple(op.w.shape), str(op.w.dtype),
                 stride, subset)
 
-    def _capture(self, op, subset: tuple[int, ...]) -> _Graph:
+    def _capture(self, op, subset: tuple[int, ...], st: _Static) -> _Graph:
         """Run the program eagerly once (it builds the kernels and uploads
         the coding matrices and indices: a host-to-device copy cannot be
-        captured), then capture it.  The kernel wrappers count their calls
+        captured), then capture it, its decoded stack copied into the
+        program's static output.  The kernel wrappers count their calls
         in both; a replay calls no wrapper and counts in ``replay_count``
         only (the device's own record of a replay's kernels is the
         profiler's)."""
         from ..core import coding
 
-        x = op.x.contiguous().clone()
-        self.program(op, subset, x)
+        st.x.copy_(op.x)
+        out = self.program(op, subset, st.x)
+        if st.out is None:
+            st.out = torch.empty_like(out)
+        dev = op.x.device
         if self._pool_handle is None:
             self._pool_handle = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(device=dev)
+        # what ``torch.cuda.graph`` does, without its emptying of the
+        # allocator's cache before every capture: a serve under load
+        # captures ~1,100 graphs, and each emptying costs a round of frees
+        # and fresh allocations
         graph = torch.cuda.CUDAGraph()
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(dev))
         try:
-            with torch.cuda.graph(graph, pool=self._pool_handle):
-                out = self.program(op, subset, x)
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=self._pool_handle)
+                try:
+                    st.out.copy_(self.program(op, subset, st.x))
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(stream)
         except RuntimeError as e:
             raise RuntimeError(
                 f"MeshExecutor: capturing the {op.kind} program as a CUDA "
                 f"graph failed ({e}); the mesh backend runs only as a "
                 "graph on the card") from e
-        return _Graph(graph, x, out, op.w,
-                      list(coding._DEVICE_CACHE.values()))
+        return _Graph(graph, op.w, list(coding._DEVICE_CACHE.values()))
 
     def _replay(self, op, subset: tuple[int, ...], key: tuple
                 ) -> torch.Tensor:
+        st = self._static.get(key)
+        if st is None:
+            st = self._static[key] = _Static(
+                torch.empty(op.x.shape, dtype=op.x.dtype, device=op.x.device))
         gkey = key + (op.w.data_ptr(),)
         g = self._graphs.get(gkey)
         if g is None:
-            g = self._capture(op, subset)
+            g = self._capture(op, subset, st)
             self._graphs[gkey] = g
             self.graph_count += 1
             while len(self._graphs) > MAX_GRAPHS:
                 self._graphs.popitem(last=False)
         else:
             self._graphs.move_to_end(gkey)
-        g.x.copy_(op.x)
+            st.x.copy_(op.x)
         g.graph.replay()
         self.replay_count += 1
-        # the next replay of any graph may reuse this memory: copy out now
-        return g.out.clone()
+        # the next replay of this program may overwrite it: copy out now
+        return st.out.clone()
 
     def run_op(self, op) -> torch.Tensor:
         """Run one coded op end to end; return the decoded (k,)+piece-shape

@@ -22,7 +22,7 @@ __all__ = ["main"]
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=list(ARCHS), default="zamba2-1.2b")
+    ap.add_argument("--arch", choices=list(ARCHS), default="gemma-2b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)

@@ -4,8 +4,9 @@ cache (the port of ``repro.models.attention``).
 
 The reference writes these in plain jnp, with no Pallas kernel, so the port
 writes them in plain torch: the same online softmax over KV blocks, the
-same masks and the same f32 accumulation.  ``chunk_attention`` and
-``flash_causal_attention`` are not ported yet (ROADMAP.md, Queue A item 8).
+same masks and the same f32 accumulation.  ``chunk_attention`` is the
+chunked-prefill primitive.  ``flash_causal_attention`` is not ported yet
+(ROADMAP.md, Queue A item 3).
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import math
 
 import torch
 
-__all__ = ["blockwise_causal_attention", "decode_attention"]
+__all__ = ["blockwise_causal_attention", "decode_attention",
+           "chunk_attention"]
 
 NEG_INF = -1e30
 
@@ -123,3 +125,37 @@ def decode_attention(
     out = torch.einsum("bkgqs,bskp->bqkgp", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, 1, H, P).to(q.dtype)
+
+
+def chunk_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos0,
+) -> torch.Tensor:
+    """Multi-token attention over a ring KV cache — the chunked-prefill
+    primitive.
+
+    q: (B, Tc, H, P) — a chunk of prompt queries whose keys/values are
+    already written into the cache at slots [pos0, pos0 + Tc); caches:
+    (B, S, K, P); pos0: scalar int (a python int or a 0-d tensor), the
+    absolute position of the chunk's first token (every lane of a
+    resuming chunk sits at the same depth).  Query t attends causally to
+    slots <= pos0 + t; never-written slots beyond the chunk are masked
+    out.  Returns (B, Tc, H, P).
+    """
+    B, S, K, P = k_cache.shape
+    Tc, H = q.shape[1], q.shape[2]
+    G = H // K
+    scale = P ** -0.5
+    qr = q.reshape(B, Tc, K, G, P)
+    s = torch.einsum("btkgp,bskp->bkgts", qr.float(),
+                     k_cache.float()) * scale
+    abs_q = (torch.as_tensor(pos0, device=q.device)
+             + torch.arange(Tc, device=q.device))
+    valid = torch.arange(S, device=q.device)[None, :] <= abs_q[:, None]
+    s = torch.where(valid[None, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgts,bskp->btkgp", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, Tc, H, P).to(q.dtype)

@@ -5,7 +5,7 @@ One functional model with a per-layer ``block_kind`` pattern:
 * ``attn``  — pre-norm GQA/MQA attention (+ optional qk_norm, sliding
               window) followed by a dense (optionally gated) FFN.
 * ``moe``   — attention followed by a routed mixture of experts: not ported
-              yet (ROADMAP.md, Queue A item 8).
+              yet (ROADMAP.md, Queue A item 3).
 * ``mamba`` — Mamba2 SSD block (models/ssm.py), whose chunk runs the SSD
               kernel.
 
@@ -36,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
-from .attention import blockwise_causal_attention, decode_attention
+from .attention import (blockwise_causal_attention, chunk_attention,
+                        decode_attention)
 from .common import lecun_init, rms_norm, rope, rope_at
 from .ssm import (SSMDims, MambaState, init_mamba_params, mamba_forward,
                   mamba_step)
@@ -45,7 +46,7 @@ __all__ = ["ModelConfig", "init_params", "forward", "prefill",
            "prefill_resume", "supports_prefill_pack", "decode_step",
            "init_cache", "param_count", "coded_executor", "current_executor"]
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue A item 8)"
+_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue A item 3)"
 
 
 # ---------------------------------------------------------------------------
@@ -293,10 +294,13 @@ def _matmul(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor
                             cfg.coded_scheme,
                             n_new if n_new is not None else cfg.coded_n,
                             k_new if k_new is not None else code.k)
-                y = coded_matmul(flat, w.float(), code, executor=ex,
+                # the source weight: the backend casts it inside the op, so
+                # a bf16 weight keeps one pointer (the mesh's graph key)
+                # and no f32 copy of it outlives the call
+                y = coded_matmul(flat, w, code, executor=ex,
                                  assignment=assignment)
             else:
-                y = coded_matmul(flat, w.float(), code)
+                y = coded_matmul(flat, w, code)
             return y.reshape(*shape[:-1], w.shape[-1]).to(x.dtype)
     # tiny subtasks run on the master (paper footnote 2) — plain GEMM
     return x @ w
@@ -319,10 +323,9 @@ def _ffn_segment(cfg: ModelConfig, p: dict, x: torch.Tensor):
     if tokens < code.k:
         return None  # master-local, same as _matmul's footnote-2 path
     flat = x.reshape(-1, shape[-1]).float()
-    f32 = lambda w: w.float()
     y = coded_ffn_segment(
-        flat, f32(p["w_in"]), f32(p["w_out"]), lambda h: _act(cfg, h), code,
-        w_gate=f32(p["w_gate"]) if cfg.gated else None,
+        flat, p["w_in"], p["w_out"], lambda h: _act(cfg, h), code,
+        w_gate=p["w_gate"] if cfg.gated else None,
         executor=current_executor())
     return y.reshape(*shape[:-1], p["w_out"].shape[-1]).to(x.dtype)
 
@@ -622,6 +625,67 @@ def _prefill_attn(cfg, layer, x, positions, win, S, ffn_key):
     return out, {"k": tail_k, "v": tail_v}
 
 
-def prefill_resume(cfg: ModelConfig, params: dict, cache: dict, tokens):
-    """Chunked prefill resume (``chunk_attention``) is not ported yet."""
-    raise NotImplementedError(f"prefill_resume {_NOT_PORTED}")
+# ---------------------------------------------------------------------------
+# chunked prefill: resume a partially-filled cache with the next chunk
+# ---------------------------------------------------------------------------
+
+def _attn_resume(cfg: ModelConfig, p: dict, x: torch.Tensor, kv: dict,
+                 pos0: torch.Tensor, positions: torch.Tensor
+                 ) -> tuple[torch.Tensor, dict]:
+    """Chunk attention block: write Tc new K/V slots at [pos0, pos0 + Tc),
+    attend causally over the whole cache."""
+    q, k, v = _qkv(cfg, p, x)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    slots = positions.long()
+    k_cache = kv["k"].index_copy(1, slots, k.to(kv["k"].dtype))
+    v_cache = kv["v"].index_copy(1, slots, v.to(kv["v"].dtype))
+    o = chunk_attention(q, k_cache, v_cache, pos0)
+    out = torch.einsum("bthp,hpd->btd", o, p["wo"])
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def _attn_block_resume(cfg, layer, x, kv, pos0, positions):
+    a, kv = _attn_resume(cfg, layer["attn"], rms_norm(x, layer["attn_norm"]),
+                         kv, pos0, positions)
+    h = x + a
+    return h + _ffn(cfg, layer["ffn"], rms_norm(h, layer["ffn_norm"])), kv
+
+
+def prefill_resume(cfg: ModelConfig, params: dict, cache: dict, tokens
+                   ) -> tuple[torch.Tensor, dict]:
+    """Extend a partially-prefilled cache by one chunk of prompt tokens.
+
+    tokens: (B, Tc) int; ``cache["pos"]`` must be a SCALAR — every lane of
+    a resuming chunk sits at the same depth.  Returns (logits at the
+    chunk's last position (B, 1, V), updated cache with ``pos += Tc``).
+    The serving primitive behind chunked prefill and prefix-cache hits;
+    exact only for ``supports_prefill_pack`` architectures.  The chunk's
+    FFN GEMMs take the same coded ``_matmul`` path as every type-1 GEMM.
+    The position stays on the device: no host synchronisation here.
+    """
+    if not supports_prefill_pack(cfg):
+        raise ValueError(
+            "prefill_resume needs a dense-attention architecture: SSM "
+            "state cannot resume from stored KV, MoE capacity routing "
+            "couples tokens across chunks, and sliding-window rings wrap "
+            f"(got block={cfg.block!r}, n_experts={cfg.n_experts}, "
+            f"sliding_window={cfg.sliding_window})")
+    x = _embed_in(cfg, params, tokens)
+    Tc = x.shape[1]
+    pos0 = torch.as_tensor(cache["pos"], device=x.device).to(torch.int32)
+    if pos0.dim():
+        raise ValueError(
+            "prefill_resume needs a scalar cache position: all lanes of a "
+            "chunk resume from the same depth (per-lane (B,) positions "
+            "mean this cache already joined the decode batch)")
+    positions = pos0 + torch.arange(Tc, device=x.device, dtype=torch.int32)
+    new_layers = []
+    for i, layer in enumerate(params["layers"]):
+        entry = dict(cache["layers"][i])
+        x, entry["kv"] = _attn_block_resume(cfg, layer, x, entry["kv"],
+                                            pos0, positions)
+        new_layers.append(entry)
+    x = rms_norm(x, params["final_norm"])
+    logits = _lm_head(cfg, params, x[:, -1])
+    return logits[:, None], {"layers": new_layers, "pos": pos0 + Tc}

@@ -16,13 +16,19 @@ CUDA graph on the card.  The model runs eagerly either way.
 ``repro_torch.dist.AdaptiveExecutor``: every coded GEMM re-solves k° and
 the piece allocation from the workers' live (mu, theta) profiles.
 
+Parameters keep their own type on every backend (bf16 by default): a coded
+GEMM hands the backend its source weight, which casts it to f32 inside the
+op (on the mesh, inside the captured program).
+
 Latency accounting is per request: ``latency_s`` measures from
 ``max(Request.arrival_s, generate() entry)`` to that request's last token,
 ``first_token_s`` to its first generated token.  Buckets are processed in
 arrival order of their earliest request.
 
-Not ported yet (ROADMAP.md, Queue A item 4): packed and chunked prefill
-and the prefix cache.
+``generate()`` serves one closed batch; open-loop serving (requests
+arriving over time, admission into a running decode batch, packed and
+chunked prefill, the coded prefix cache) lives in
+:mod:`repro_torch.serving.scheduler`, built on the step-level API here.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ import torch
 
 from .._device import resolve_device
 from ..models.model import (ModelConfig, _coded_scheme, coded_executor,
-                            decode_step, init_params, prefill)
+                            decode_step, init_cache, init_params, prefill,
+                            prefill_resume, supports_prefill_pack)
 
 __all__ = ["Request", "Completion", "Engine", "cache_cat", "cache_take"]
 
@@ -58,28 +65,6 @@ class Completion:
     tokens: np.ndarray  # generated ids
     latency_s: float        # max(arrival, generate() entry) -> last token
     first_token_s: float = 0.0  # same reference -> its first token
-
-
-def _require_f32(params) -> None:
-    """The mesh backend serves f32 weights only: the model hands a coded
-    GEMM ``w.float()``, a new tensor per call for any other type, and the
-    mesh keys its CUDA graphs by the weight's pointer — every call would
-    capture (and keep) a new graph."""
-    stack = [params]
-    while stack:
-        node = stack.pop()
-        if isinstance(node, dict):
-            stack.extend(node.values())
-        elif isinstance(node, (list, tuple)):
-            stack.extend(node)
-        elif (isinstance(node, torch.Tensor) and node.is_floating_point()
-                and node.dtype != torch.float32):
-            raise ValueError(
-                f"the mesh backend serves f32 weights, got a {node.dtype} "
-                f"parameter of shape {tuple(node.shape)}: its per-call cast "
-                "would capture a new CUDA graph on every coded GEMM (serve "
-                "it on the threaded CodedExecutor, or cast the params to "
-                "f32)")
 
 
 class Engine:
@@ -169,11 +154,6 @@ class Engine:
             dev = resolve_device(device)
             gen = torch.Generator(device=dev).manual_seed(seed)
             params = init_params(cfg, gen, device=dev)
-        if executor is not None:
-            from ..dist.mesh_exec import MeshExecutor
-
-            if isinstance(executor, MeshExecutor):
-                _require_f32(params)
         self.params = params
         self.device = params["embed"].device
         self.max_batch = max_batch
@@ -187,7 +167,10 @@ class Engine:
         ``retarget_coded`` take effect."""
         cfg = self.cfg
         self._prefill = lambda p, t, ms: prefill(cfg, p, t, max_seq=ms)
+        self._prefill_pack = (
+            lambda p, t, ln, ms: prefill(cfg, p, t, max_seq=ms, lens=ln))
         self._decode = lambda p, c, t: decode_step(cfg, p, c, token=t)
+        self._resume = lambda p, c, t: prefill_resume(cfg, p, c, t)
 
     def _warm_decode(self) -> None:
         if self.cfg.coded_n:
@@ -274,6 +257,105 @@ class Engine:
         logits, cache = self._decode(self.params, cache, toks)
         return self._greedy(logits)[:, 0].cpu().numpy(), cache
 
+    # -- prefill-efficient serving ------------------------------------------
+    # Each call's sampled tokens leave the device once, at its end (the
+    # host copy that also finishes the call's device work).
+
+    @property
+    def supports_packed(self) -> bool:
+        """Whether packed mixed-length prefill / chunk resume / prefix
+        caching are exact for this engine's architecture (dense attention,
+        no MoE, no SSM state, no sliding window)."""
+        return supports_prefill_pack(self.cfg)
+
+    def _require_packed(self, what: str) -> None:
+        if not self.supports_packed:
+            raise ValueError(
+                f"{what} needs a dense-attention architecture (packed "
+                "padding must be invisible to real tokens and KV slices "
+                "must resume): see models.supports_prefill_pack "
+                f"(cfg: block={self.cfg.block!r}, "
+                f"n_experts={self.cfg.n_experts}, "
+                f"sliding_window={self.cfg.sliding_window})")
+
+    def prefill_packed(self, prompts: Sequence[np.ndarray], max_seq: int
+                       ) -> tuple[np.ndarray, dict]:
+        """Prefill b prompts of MIXED lengths in one padded, masked call:
+        -> ((b,) first generated tokens, cache with per-lane (b,)
+        positions).  Prompts are right-padded to the longest; causality
+        keeps padding in every real token's future and each lane's logits
+        are gathered at its own last real position, so tokens match the
+        per-length prefill while the coded GEMMs see one (b * T_max, d)
+        token stack: ONE n-piece dispatch per GEMM for the admission."""
+        self._require_packed("prefill_packed (mixed-length packing)")
+        lens = np.asarray([len(p) for p in prompts], np.int32)
+        if lens.min() < 1:
+            raise ValueError("prefill_packed needs non-empty prompts")
+        T = int(lens.max())
+        toks = np.zeros((len(lens), T), np.int32)
+        for j, p in enumerate(prompts):
+            toks[j, : lens[j]] = np.asarray(p, np.int32)
+        logits, cache = self._prefill_pack(
+            self.params, self._tokens(toks),
+            torch.as_tensor(lens, device=self.device), max_seq)
+        return self._greedy(logits)[:, 0].cpu().numpy(), cache
+
+    def new_stream_cache(self, max_seq: int, batch: int = 1) -> dict:
+        """Empty ring cache for a chunked-prefill stream (scalar pos 0):
+        feed it prompt chunks via :meth:`prefill_chunk`."""
+        self._require_packed("chunked prefill")
+        return init_cache(self.cfg, batch, max_seq, device=self.device)
+
+    def prefill_chunk(self, cache: dict, tokens: np.ndarray
+                      ) -> tuple[np.ndarray, dict]:
+        """Consume one (b, Tc) chunk of prompt into a stream cache:
+        -> ((b,) next-token samples at the chunk's last position, updated
+        cache).  The tokens only mean anything on the final chunk; the
+        cache is valid after every chunk.  A chunk's FFN GEMMs take the
+        coded path like any prefill: chunks with >= k token rows dispatch
+        to the executor, smaller ones (a prefix-cache hit's one-token
+        suffix) stay on the master and issue no dispatch."""
+        self._require_packed("prefill_chunk (chunk resume)")
+        toks = self._tokens(tokens)
+        pos0 = int(cache["pos"])
+        S = _seq_extent(cache)
+        if pos0 + toks.shape[1] > S:
+            raise ValueError(
+                f"chunk overruns the ring cache: pos {pos0} + chunk "
+                f"{toks.shape[1]} > cache extent {S}")
+        logits, cache = self._resume(self.params, cache, toks)
+        return self._greedy(logits)[:, 0].cpu().numpy(), cache
+
+    def kv_prefix(self, cache: dict, lane: int, t0: int, t1: int) -> list:
+        """One lane's KV for positions [t0, t1) out of a batch cache — the
+        segment a :class:`~repro_torch.serving.prefix_cache.PrefixCache`
+        stores per block: per-layer device copies with a length-1 lane
+        axis (copies, so that a cached block does not keep the whole
+        batch cache alive)."""
+        return _tree_map(lambda x: x[lane: lane + 1, t0:t1].clone(),
+                         cache["layers"])
+
+    def cache_from_prefix(self, segments: Sequence, length: int,
+                          max_seq: int) -> dict:
+        """Rebuild a single-lane stream cache on the engine's device from
+        prefix-cache segments: slots [0, length) restored, ``pos`` the
+        SCALAR ``length``, ready for :meth:`prefill_chunk` to consume the
+        prompt's unmatched suffix.  Restored KV is post-decode plaintext:
+        no coded GEMM runs for it, and the live (n, k) is irrelevant to
+        its validity."""
+        self._require_packed("prefix-cache restore")
+        base = init_cache(self.cfg, 1, max_seq, device=self.device)
+        joined = _tree_map(lambda *xs: torch.cat(xs, dim=1), *segments)
+
+        def put(z, seg):
+            z[:, : seg.shape[1]] = seg.to(z.dtype)
+            return z
+
+        layers = _tree_map(put, base["layers"], joined)
+        return {"layers": layers,
+                "pos": torch.tensor(length, dtype=torch.int32,
+                                    device=self.device)}
+
     def _run_batch(self, chunk: list[Request], T: int, max_new: int,
                    t0: float):
         toks = self._tokens(np.stack([r.prompt for r in chunk]))
@@ -317,6 +399,12 @@ def _tree_map(fn, *trees):
     if isinstance(t0, (list, tuple)):
         return [_tree_map(fn, *parts) for parts in zip(*trees)]
     return fn(*trees)
+
+
+def _seq_extent(cache: dict) -> int:
+    """Ring size S of a dense-attention cache (the slot axis sits just
+    after the lanes)."""
+    return int(cache["layers"][0]["kv"]["k"].shape[1])
 
 
 def cache_cat(caches: Sequence[dict]) -> dict:

@@ -49,6 +49,7 @@ from repro_torch.kernels.conv2d import conv2d_stacked
 from repro_torch.kernels.skinny_gemm import piece_gemm_stacked, skinny_gemm
 from repro_torch.launch import (PIECE_LANES, PiecePlacementError,
                                 make_local_mesh)
+from repro_torch.models import model as TM
 from repro_torch.serving import Engine, Request
 from repro_torch.telemetry import TraceRecorder
 
@@ -357,10 +358,121 @@ def test_engine_rejects_adaptive_on_mesh(one_layer):
                device="cpu")
 
 
+def _source_weights(params) -> dict:
+    """data_ptr -> dtype of every parameter tensor."""
+    out, stack = {}, [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        else:
+            out[node.data_ptr()] = node.dtype
+    return out
+
+
 def test_engine_rejects_non_f32_weights_on_mesh(one_layer):
-    # the model casts a coded weight per call (w.float()); on the mesh that
-    # would be a new graph key each call, so other types are refused
-    tc, tp, _ = one_layer
-    bad = dict(tp, embed=tp["embed"].to(torch.bfloat16))
-    with pytest.raises(ValueError, match="f32 weights"):
-        Engine(tc, params=bad, executor=tdist.MeshExecutor(), device="cpu")
+    """bf16 params serve on the mesh (the name is the parent's, whose mesh
+    refused them), under a dead worker and under a straggler: tokens equal
+    to the threaded executor's with the same subset; every coded op gets
+    the SOURCE bf16 weight (the cast runs inside the op, so no f32 copy is
+    kept and the graph key is the parameter's own pointer and type); a
+    second generate builds no new program and captures no new graph."""
+    tc, _, reqs = one_layer
+    bf = dataclasses.replace(tc, dtype=torch.bfloat16)
+    params = TM.init_params(bf, torch.Generator().manual_seed(4),
+                            device="cpu")
+    sources = _source_weights(params)
+    for _, fp_kw, mesh_kw in FAULTS[1:]:
+        _bf16_mesh_parity(bf, params, sources, reqs, fp_kw, mesh_kw)
+
+
+def test_f32_weights_reach_the_op_uncast(one_layer):
+    """With f32 params the coded op gets the parameter tensor itself and
+    computes with it (``CodedOp.weight()`` is ``w``): the pieces see the
+    very tensors they saw before the cast moved into the op, so f32
+    results keep their bits."""
+    tc, tp, reqs = one_layer
+    sources = _source_weights(tp)
+    ex = _threads(tdist, 4, FAULTS[1][1])
+    seen = []
+    run_op = ex.run_op
+    ex.run_op = lambda op: (seen.append(op), run_op(op))[1]
+    try:
+        Engine(tc, params=tp, executor=ex, device="cpu").generate(reqs)
+    finally:
+        ex.close()
+    assert seen
+    for op in seen:
+        assert op.weight() is op.w
+        assert sources.get(op.w.data_ptr()) == torch.float32
+
+
+def _bf16_mesh_parity(bf, params, sources, reqs, fp_kw, mesh_kw):
+    mesh = tdist.MeshExecutor(**mesh_kw)
+    seen = []
+    run_op = mesh.run_op
+    mesh.run_op = lambda op: (seen.append((op.w.data_ptr(), op.w.dtype)),
+                              run_op(op))[1]
+    eng_m = Engine(bf, params=params, executor=mesh, device="cpu")
+    ex = _threads(tdist, 4, fp_kw)
+    try:
+        out_t = Engine(bf, params=params, executor=ex,
+                       device="cpu").generate(reqs)
+        runs_t, subset_t = ex.run_count, list(ex.last_report.subset)
+    finally:
+        ex.close()
+    out_m = eng_m.generate(reqs)
+    assert mesh.run_count == runs_t > 0
+    assert list(mesh.last_report.subset) == subset_t
+    for a, b in zip(out_t, out_m):
+        assert a.rid == b.rid
+        assert a.tokens.tolist() == b.tokens.tolist()
+    assert seen and all(sources.get(ptr) == dt == torch.bfloat16
+                        for ptr, dt in seen)
+    programs, graphs = mesh.compile_count, mesh.graph_count
+    again = eng_m.generate(reqs)
+    assert (mesh.compile_count, mesh.graph_count) == (programs, graphs)
+    assert mesh.run_count == 2 * runs_t
+    for a, b in zip(out_m, again):
+        assert a.tokens.tolist() == b.tokens.tolist()
+
+
+def test_scheduler_serves_on_mesh_like_threads():
+    """The stand-in for the reference's TestMeshServing::
+    test_scheduler_serves_on_mesh (which jax 0.9.0 cannot run): the port's
+    scheduler on a CPU MeshExecutor serves the threaded scheduler's tokens
+    with the same subset, packed and grouped, and books one run per coded
+    GEMM of each call, n dispatches each.  Every request arrives at 0, so
+    the schedule does not depend on the mesh's wall-clock timeline."""
+    from repro_torch.serving import ServingScheduler
+
+    cfg = TM.ModelConfig(name="tiny", n_layers=2, d_model=32, n_heads=4,
+                         n_kv_heads=2, d_ff=64, vocab=64, gated=False,
+                         dtype=torch.float32, coded_n=4, coded_k=2)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(5),
+                            device="cpu")
+    rng = np.random.default_rng(5)
+    reqs = [Request(i, rng.integers(0, 64, n, dtype=np.int32), max_new=3)
+            for i, n in enumerate((4, 7, 5, 7))]
+    for packed in (False, True):
+        out = {}
+        for backend in ("threads", "mesh"):
+            ex = (_threads(tdist, 4, FAULTS[2][1]) if backend == "threads"
+                  else tdist.MeshExecutor(**FAULTS[2][2]))
+            try:
+                eng = Engine(cfg, params=params, executor=ex, device="cpu")
+                res = ServingScheduler(eng, max_seq=16, max_batch=4,
+                                       packed=packed).serve(
+                    [dataclasses.replace(r) for r in reqs])
+                out[backend] = (
+                    {c.rid: c.tokens.tolist() for c in res.completions},
+                    [(s.batch, s.admitted, s.runs, s.prefill_runs)
+                     for s in res.steps],
+                    list(ex.last_report.subset), res.steps)
+            finally:
+                ex.close()
+        assert out["mesh"][:3] == out["threads"][:3]
+        assert all(s.dispatches == 4 * s.runs for s in out["mesh"][3])
+        assert sum(s.runs for s in out["mesh"][3]) > 0

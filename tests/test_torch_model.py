@@ -172,17 +172,20 @@ def test_coded_matmul_path_matches_reference():
 
 def test_not_ported_parts_raise():
     cfg = tconfigs.smoke_config("zamba2-1.2b")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    # prefill_resume is ported: outside dense attention it raises the
+    # reference's error (its positive parity is
+    # test_prefill_resume_matches_reference)
+    with pytest.raises(ValueError, match="dense-attention"):
         TM.prefill_resume(cfg, {}, {}, None)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
         TM._moe_ffn(cfg, {}, torch.zeros(1, 1, 4))
     moe = dataclasses.replace(cfg, block="attn", n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
         TM.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
     flash = dataclasses.replace(cfg, flash_vjp=True)
     params = TM.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
         TM.forward(flash, params, torch.zeros((1, 4), dtype=torch.long))
     with pytest.raises(ValueError, match="lens="):
         TM.prefill(cfg, params, torch.zeros((1, 4), dtype=torch.long),
@@ -297,12 +300,16 @@ def test_input_shapes_and_registry():
     assert tconfigs.LONG_WINDOW == jconfigs.LONG_WINDOW
     assert set(tconfigs.ARCHS) <= set(jconfigs.ARCHS)
     with pytest.raises(KeyError):
-        tconfigs.get_config("gemma-2b")  # not ported yet
+        tconfigs.get_config("dbrx-132b")  # MoE: not ported yet
 
 
 @pytest.mark.parametrize("arch,table", [
     ("zamba2-1.2b", (38, 2048, 32, 32, 8192, 32000)),
     ("mamba2-2.7b", (64, 2560, 1, 1, 0, 50280)),
+    ("gemma-2b", (18, 2048, 8, 1, 16384, 256000)),
+    ("minicpm-2b", (40, 2304, 36, 36, 5760, 122753)),
+    ("qwen3-32b", (64, 5120, 64, 8, 25600, 151936)),
+    ("deepseek-coder-33b", (62, 7168, 56, 8, 19200, 32256)),
 ])
 def test_full_config_matches_published_shapes(arch, table):
     """tests/test_arch_smoke.py's stale-config check, for the configs the
@@ -310,7 +317,14 @@ def test_full_config_matches_published_shapes(arch, table):
     cfg = tconfigs.get_config(arch)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.d_ff, cfg.vocab) == table
-    assert cfg.ssm_state == (64 if arch == "zamba2-1.2b" else 128)
+    extra = {"zamba2-1.2b": lambda c: c.ssm_state == 64,
+             "mamba2-2.7b": lambda c: c.ssm_state == 128,
+             "gemma-2b": lambda c: c.head_dim == 256 and c.act == "geglu",
+             "minicpm-2b": lambda c: c.act == "silu" and c.gated,
+             "qwen3-32b": lambda c: c.qk_norm and c.head_dim == 128,
+             "deepseek-coder-33b": lambda c: c.rope_theta == 1e5}
+    assert extra[arch](cfg)
+    assert TM.supports_prefill_pack(cfg) == (cfg.block == "attn")
 
 
 def test_convert_round_trip(pair):

@@ -174,13 +174,24 @@ def test_engine_builds_its_own_params_from_a_seed():
     assert a.device == torch.device("cpu")
 
 
-def test_serve_cli_runs_in_process():
+def _serve_cli(*extra):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = serve.main(["--device", "cpu", "--smoke", "--requests", "2",
                          "--prompt-len", "8", "--max-new", "3",
-                         "--coded", "5", "3"])
+                         "--coded", "5", "3", *extra])
     assert rc == 0
-    text = out.getvalue()
+    return out.getvalue()
+
+
+def test_serve_cli_runs_in_process():
+    """The default --arch is the reference's, gemma-2b."""
+    text = _serve_cli()
+    assert "gemma-2b: served 2 requests, 6 tokens" in text
+    assert "coded (n=5, k=3)" in text
+
+
+def test_serve_cli_serves_zamba2_by_name():
+    text = _serve_cli("--arch", "zamba2-1.2b")
     assert "zamba2-1.2b: served 2 requests, 6 tokens" in text
     assert "coded (n=5, k=3)" in text
