@@ -114,6 +114,27 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    with bf16 parameters: tokens equal to the pool's, one
                    graph per (program, weight), a second serve that
                    captures nothing and calls no kernel wrapper.
+9. ``families``  — the remaining model families, after releasing every
+                   earlier phase's model: (a) internvl2-1b and (b)
+                   musicgen-medium at published widths and depth, f32,
+                   prefilled from ``models.frontends``' synthetic patch
+                   (8 x 256) and frame (8 x 500) embeddings, then 16
+                   greedy decode steps, coded (10, 6) on the pool and on
+                   the mesh with the zamba2 faults, and uncoded: logits
+                   within 1e-3 max|logit| of the uncoded model, tokens
+                   equal outside near-ties, the mesh's tokens and logits
+                   the pool's bit for bit, coded runs and skinny-GEMM
+                   launches by regime and shape against the design; (a)
+                   also serves 8 token prompts of 512 through
+                   ``Engine.generate`` on both backends.  (c) dbrx-132b
+                   at published widths, depth 2, f32, and (d)
+                   kimi-k2-1t-a32b at published widths, depth 1, bf16,
+                   each serving 4 prompts of 512 tokens: ``_moe_ffn``
+                   against an f64 mixture of the kept slots, drops per
+                   call; (c) also coded (10, 6) with zero coded runs (the
+                   reference codes no MoE GEMM), prefill + decode against
+                   ``forward`` at capacity 4.0, and the flash forward
+                   against the blockwise one; (d) peaks under 45 GB.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  There is no fallback: no GPU, a kernel
@@ -122,10 +143,11 @@ non-zero exit code and no result line.
 
 ``--phases kernels,zamba2`` runs a subset (for debugging; the result line is
 only printed when every phase ran; ``zamba2_mesh``, ``adaptive`` and
-``serving`` need ``zamba2``).  ``--time-kernels CHECKOUT`` only times
-the skinny GEMM, the conv and the SSD scan of the port in another checkout
-(a parent commit unpacked beside this one) at this script's f32 cases, so
-that two versions can be held against each other in one run on one card.
+``serving`` need ``zamba2``; ``families`` stands alone).
+``--time-kernels CHECKOUT`` only times the skinny GEMM, the conv and the
+SSD scan of the port in another checkout (a parent commit unpacked beside
+this one) at this script's f32 cases, so that two versions can be held
+against each other in one run on one card.
 """
 from __future__ import annotations
 
@@ -147,7 +169,7 @@ L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 SEED = 0
 N_WORKERS = 10
 ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16", "zamba2",
-              "zamba2_mesh", "adaptive", "serving")
+              "zamba2_mesh", "adaptive", "serving", "families")
 
 
 def emit(obj: dict) -> None:
@@ -354,7 +376,8 @@ def gemm_cases(torch):
         ("encode unaligned X (10,6)@(6,291840)", G106, 291840, f32, False,
          True),
         ("decode (16,16) F=262144", D1616, 262144, f32, False),
-    ] + serving_gemm_cases(torch, G106, D66) + adaptive_gemm_cases(torch) + [
+    ] + serving_gemm_cases(torch, G106, D66) + adaptive_gemm_cases(torch) + \
+        family_gemm_cases(torch, G106, D66) + [
         # the headline shape once more, last: two readings show the spread
         ("encode conv2_2 B=1 (again)", G106, 291840, f32, False),
     ]
@@ -1023,6 +1046,10 @@ def phase_kernels(torch) -> list[dict]:
     # the mesh's stacked launch at gemma-2b's shapes (phase serving (c))
     cases += [check_stacked(torch, timer, gen, t_p, b, F)
               for b, F in GEMMA_FFN for t_p in (1, 42, 682)]
+    # and at the frontend models' (phase families (a), (b))
+    cases += [check_stacked(torch, timer, gen, t_p, b, F)
+              for _, arch, *_ in FRONTEND_PARTS
+              for t_p in family_t_ps(arch) for b, F in family_ffn(arch)]
     cases += [check_conv(torch, timer, gen, *c) for c in conv_cases(torch)]
     cases += [check_ssd(torch, timer, gen, *c) for c in ssd_cases(torch)]
     cases += check_ssd_passes(torch, timer, gen)
@@ -2789,29 +2816,8 @@ def serve_once(torch, sched, reqs, *, profile=False):
         res = sched.serve(copies)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0, None
-    import collections
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprof
-
-    # device activity only, read from the profiler's raw records: a serve
-    # launches ~10^5 kernels, and turning every record into a Python event
-    # (``prof.events()``, ``key_averages``) costs ~30x the walk below
-    with tprof(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = sched.serve(copies)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = collections.Counter()
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == DeviceType.CUDA and not ev.is_hidden_event():
-            by_name[ev.name()] += ev.duration_ns()
-    require(bool(by_name), "serve: no device kernel rows in the profile")
-    device_ms = sum(by_name.values()) / 1e6
-    return res, wall, {"wall_ms": wall * 1e3, "device_ms": device_ms,
-                       "idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
-                       "top": [{"name": k[:60], "ms": t / 1e6}
-                               for k, t in by_name.most_common(4)]}
+    res, wall, prof, _ = device_profile(torch, lambda: sched.serve(copies))
+    return res, wall, prof
 
 
 def tokens_of(res) -> dict:
@@ -3178,6 +3184,741 @@ def phase_serving(torch, z: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the remaining model families — frontends and routed experts
+# ---------------------------------------------------------------------------
+
+# (a) and (b): prefill from synthetic frontend embeddings at full width and
+# depth, then greedy decode by token, on the pool, on the mesh and uncoded.
+# B = 8 so that every decode step has >= k = 6 tokens and codes its GEMMs
+# (a step with fewer runs on the master uncoded, the reference's rule).
+# (part, arch, frontend helper, batch, embeddings, decode steps, coded
+# GEMMs a layer a step)
+FRONTEND_PARTS = (
+    # one 448x448 InternVL2 tile after pixel shuffle: 256 patches
+    ("a", "internvl2-1b", "synthetic_patches", 8, 256, 16, 3),
+    # 10 s of EnCodec frames at 50 Hz
+    ("b", "musicgen-medium", "synthetic_frames", 8, 500, 16, 2),
+)
+FAMILY_K = 6
+FAMILY_SERVE = (8, 512, 16)  # (a)'s Engine.generate: prompts, tokens, new
+# (c) and (d): the MoE configs at published widths, depth cut
+MOE_PARTS = (("c", "dbrx-132b", 2), ("d", "kimi-k2-1t-a32b", 1))
+MOE_SERVE = (4, 512, 8)      # prompts, tokens, new tokens each
+MOE_F64_TOKENS = {"dbrx-132b": None, "kimi-k2-1t-a32b": 64}
+KIMI_PEAK_LIMIT = 45e9
+
+
+def family_ffn(arch: str) -> tuple:
+    """(d_in, d_out) of the frontend model's FFN weights (w_gate shares
+    w_in's)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return (cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)
+
+
+def family_t_ps(arch: str) -> tuple:
+    """The piece rows t_p = tokens // k of the frontend part's coded GEMMs:
+    its prefill, its decode steps and (internvl2-1b) the Engine's prefill."""
+    part = next(p for p in FRONTEND_PARTS if p[1] == arch)
+    t_ps = [part[3] * part[4] // FAMILY_K, part[3] // FAMILY_K]
+    if arch == "internvl2-1b":
+        t_ps.append(FAMILY_SERVE[0] * FAMILY_SERVE[1] // FAMILY_K)
+    return tuple(sorted(set(t_ps)))
+
+
+def family_gemm_cases(torch, G106, D66) -> list:
+    """The pieces, encodes and decodes of the frontend parts' coded FFNs at
+    (10, 6): per t_p and weight (d_in, d_out), the piece ``(t_p, d_in) @
+    (d_in, d_out)``, the encode ``(10, 6) @ (6, t_p d_in)`` and the decode
+    ``(6, 6) @ (6, t_p d_out)``."""
+    f32 = torch.float32
+    cases = []
+    for _, arch, *_ in FRONTEND_PARTS:
+        for t_p in family_t_ps(arch):
+            for b, F in family_ffn(arch):
+                cases += [
+                    (f"piece GEMM {arch} {t_p}x{b}x{F}", (t_p, b), F, f32,
+                     False),
+                    (f"encode {arch} (10,6)@(6,{t_p}*{b})", G106, t_p * b,
+                     f32, False),
+                    (f"decode {arch} (6,6)@(6,{t_p}*{F})", D66, t_p * F, f32,
+                     False)]
+    return cases
+
+
+def device_profile(torch, fn):
+    """``fn()`` under torch.profiler, device activity only, read from the
+    profiler's raw records (a run launches ~10^5 kernels, and turning every
+    record into a Python event costs ~30x this walk): (fn's result, wall
+    s, {wall_ms, device_ms, idle_share, top}, device instances by kernel
+    name)."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    torch.cuda.synchronize()
+    with tprof(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ns, calls = collections.Counter(), collections.Counter()
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and not ev.is_hidden_event():
+            ns[ev.name()] += ev.duration_ns()
+            calls[ev.name()] += 1
+    require(bool(ns), "no device kernel rows in the profile")
+    device_ms = sum(ns.values()) / 1e6
+    return out, wall, {"wall_ms": wall * 1e3, "device_ms": device_ms,
+                       "idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
+                       "top": [{"name": k[:60], "ms": t / 1e6}
+                               for k, t in ns.most_common(4)]}, calls
+
+
+def instances(calls, part: str) -> int:
+    return sum(n for name, n in calls.items() if part in name)
+
+
+def param_bytes(params) -> int:
+    from repro_torch.models.model import _leaves
+
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def embed_run(torch, cfg, params, emb, steps, feed=None):
+    """Prefill from the embeddings ``emb`` (B, T, D), then ``steps`` decode
+    steps by token: greedy, or ``feed`` (B, steps + 1) teacher-forced.
+    Returns (each step's logits (B, vocab), tokens (B, steps + 1), TTFT
+    ms, ms per decode step)."""
+    import numpy as np
+    from repro_torch.models import model as M
+
+    V = cfg.vocab
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, embeds=emb,
+                              max_seq=emb.shape[1] + steps)
+    out = [logits[:, 0, :V]]
+    toks = [out[-1].argmax(-1).cpu().numpy()]
+    ttft = time.perf_counter() - t0
+    for s in range(steps):
+        nxt = toks[-1] if feed is None else feed[:, s]
+        logits, cache = M.decode_step(
+            cfg, params, cache, token=torch.as_tensor(nxt[:, None],
+                                                      device="cuda"))
+        out.append(logits[:, 0, :V])
+        toks.append(out[-1].argmax(-1).cpu().numpy())
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    return out, np.stack(toks, 1), ttft * 1e3, (total - ttft) / steps * 1e3
+
+
+def as_completions(tokens) -> list:
+    """Token rows as the completions ``hold_to_uncoded`` reads."""
+    import types
+
+    return [types.SimpleNamespace(rid=i, tokens=t)
+            for i, t in enumerate(tokens)]
+
+
+def frontend_design(torch, cfg, batch, length, steps, gemms, live) -> tuple:
+    """Coded runs and skinny-GEMM launches by regime the design implies for
+    a prefill of ``batch x length`` embeddings and ``steps`` decode steps
+    of ``batch`` tokens: ``gemms`` coded GEMMs a layer a step (every step
+    has >= k tokens), each one encode, a piece per live worker (all of them
+    compute on the virtual clock) and one decode."""
+    import collections
+
+    from repro_torch.kernels.skinny_gemm import piece_plan
+
+    calls = [(batch * length, 1), (batch, steps)]
+    runs = gemms * cfg.n_layers * sum(n for _, n in calls)
+    by = collections.Counter({"coding": 2 * runs})
+    for tokens, n in calls:
+        t_p = tokens // FAMILY_K
+        plan = piece_plan(t_p, cfg.d_model, cfg.d_ff, torch.float32, True)
+        by[plan.regime] += live * gemms * cfg.n_layers * n
+    return runs, dict(by)
+
+
+def regimes(tally) -> dict:
+    import collections
+
+    by = collections.Counter()
+    for (regime, *_), n in tally.counts.items():
+        by[regime] += n
+    return dict(by)
+
+
+def families_frontend(torch, part, arch, helper, batch, length, steps,
+                      gemms) -> tuple:
+    """(a) / (b): one frontend model at full width and depth, f32, seeded
+    random weights, prefilled from synthetic embeddings and decoded on the
+    pool, on the mesh and uncoded; for (a) also ``Engine.generate`` of
+    token prompts on both backends."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.dist import FakeClock, MeshExecutor
+    from repro_torch.models import frontends
+    from repro_torch.models import model as M
+
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    widths = {"internvl2-1b": (24, 896, 14, 2, 64, 4864, 151655, True),
+              "musicgen-medium": (48, 1536, 24, 24, 64, 6144, 2048, False)}
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+             cfg.d_ff, cfg.vocab, cfg.gated) == widths[arch],
+            f"{arch} at its published widths and depth")
+    seed = SEED + 40 + ord(part)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    emb = getattr(frontends, helper)(
+        torch.Generator(device="cuda").manual_seed(seed + 1), batch, length,
+        cfg.d_model, torch.float32, device="cuda")
+    coded = dataclasses.replace(cfg, coded_n=N_WORKERS, coded_k=FAMILY_K)
+    ex = make_executor(FakeClock())
+    live = N_WORKERS - len(ex.pool.fault_plan.dead)
+    want_runs, want_regimes = frontend_design(torch, cfg, batch, length,
+                                              steps, gemms, live)
+    mesh = MeshExecutor(dead=(1,), stragglers=(2,))
+    label = f"families ({part}) {arch}"
+    try:
+        # ---- the pool: the counted run, then a profiled one -------------
+        reports = []
+        ex.on_report = reports.append
+        ops = record_coded_ops(ex)
+        zero_launch_counters()
+        t0 = time.perf_counter()
+        with LaunchTally() as tally, M.coded_executor(ex):
+            pool, pool_toks, pool_ttft, pool_tok_ms = embed_run(
+                torch, coded, params, emb, steps)
+        pool_wall = time.perf_counter() - t0
+        counts = read_launch_counters()
+        del ex.run_op
+        ex.on_report = None
+        require(ex.run_count == len(reports) == len(ops) == want_runs,
+                f"{label}: {ex.run_count} coded runs, the design implies "
+                f"{want_runs}")
+        require(counts["skinny_gemm"] == sum(tally.counts.values())
+                == sum(want_regimes.values())
+                and regimes(tally) == want_regimes,
+                f"{label}: skinny-GEMM launches {regimes(tally)}, the design "
+                f"implies {want_regimes}")
+        require(tally.counts == coded_op_design(torch, ops, live),
+                f"{label}: launches by shape differ from the coded ops' "
+                "design")
+        require(counts["piece_gemm_stacked"] == counts["conv2d"]
+                == counts["ssd_chunk"] == 0, f"{label}: {counts}")
+        tally_covered(torch, tally, label)
+        for r in reports:
+            require(r.t_complete == 1.0 and 1 not in r.subset
+                    and 2 not in r.subset,
+                    f"{label}: a coded run waited or used a faulty worker: "
+                    f"t_complete {r.t_complete}, subset {r.subset}")
+        with M.coded_executor(ex):
+            (again, again_toks, _, _), _, pool_prof, _ = device_profile(
+                torch, lambda: embed_run(torch, coded, params, emb, steps))
+        require(np.array_equal(again_toks, pool_toks)
+                and all(torch.equal(a, b) for a, b in zip(again, pool)),
+                f"{label}: two pool runs differ")
+
+        # ---- uncoded, teacher-forced on the pool's tokens ----------------
+        t0 = time.perf_counter()
+        refs, _, ref_ttft, ref_tok_ms = embed_run(torch, cfg, params, emb,
+                                                  steps, feed=pool_toks)
+        ref_wall = time.perf_counter() - t0
+        _, _, ref_prof, _ = device_profile(
+            torch, lambda: embed_run(torch, cfg, params, emb, steps,
+                                     feed=pool_toks))
+        ids = list(range(batch))
+        quality = hold_to_uncoded(label, [(ids, length, steps + 1)],
+                                  as_completions(pool_toks), pool, refs)
+
+        # ---- the mesh: capture, replay, profiled replay -----------------
+        # a graph per (token count, weight): each layer's own weights
+        t_ps = {batch * length // FAMILY_K, batch // FAMILY_K}
+        want_graphs = gemms * cfg.n_layers * len(t_ps)
+        want_programs = len(family_ffn(arch)) * len(t_ps)
+        want_inst = {"piece_gemm_stacked": want_runs,
+                     "skinny_gemm": 2 * want_runs,
+                     "coding_gemm_narrow": 2 * want_runs}
+        mesh_rows, attempts = [], []
+        # the profiled turn counts the replays' kernels on the device.  The
+        # profiler can lose a replay's records (one whole-script run lost 2
+        # of 1632 replays' kernels): a shortfall is measured again, up to
+        # three profiled runs, and every attempt is reported
+        for turn in ("first (captures)", "replayed") + ("profiled",) * 3:
+            r0, g0 = mesh.run_count, mesh.graph_count
+            zero_launch_counters()
+            t0 = time.perf_counter()
+            with M.coded_executor(mesh):
+                if turn == "profiled":
+                    (got, got_toks, ttft, tok_ms), wall, mesh_prof, calls = \
+                        device_profile(torch, lambda: embed_run(
+                            torch, coded, params, emb, steps))
+                else:
+                    got, got_toks, ttft, tok_ms = embed_run(
+                        torch, coded, params, emb, steps)
+                    wall = time.perf_counter() - t0
+            wrappers = read_launch_counters()
+            require(np.array_equal(got_toks, pool_toks)
+                    and all(torch.equal(a, b) for a, b in zip(got, pool)),
+                    f"{label} mesh {turn}: tokens or logits are not the "
+                    "pool's bit for bit")
+            require(mesh.run_count - r0 == want_runs,
+                    f"{label} mesh {turn}: {mesh.run_count - r0} runs")
+            if turn == "first (captures)":
+                require(mesh.graph_count == want_graphs
+                        and mesh.compile_count == want_programs
+                        and wrappers["piece_gemm_stacked"] == 2 * want_graphs
+                        and wrappers["skinny_gemm"] == 4 * want_graphs,
+                        f"{label} mesh: {mesh.graph_count} graphs, "
+                        f"{mesh.compile_count} programs, wrappers "
+                        f"{wrappers}; the design implies {want_graphs} "
+                        f"graphs, {want_programs} programs")
+            else:
+                require(mesh.graph_count == g0 and wrappers["skinny_gemm"]
+                        == wrappers["piece_gemm_stacked"] == 0,
+                        f"{label} mesh {turn}: captured or called wrappers: "
+                        f"{wrappers}")
+            mesh_rows.append({"turn": turn, "wall_s": wall, "ttft_ms": ttft,
+                              "decode_ms_per_step": tok_ms,
+                              "wrapper_calls": wrappers})
+            if turn == "profiled":
+                attempts.append({
+                    "piece_gemm_stacked": instances(calls, "piece_"),
+                    "skinny_gemm": instances(calls, "coding_gemm"),
+                    "coding_gemm_narrow": instances(calls,
+                                                    "coding_gemm_narrow")})
+                mesh_rows[-1]["device_instances"] = attempts[-1]
+                if attempts[-1] == want_inst:
+                    break
+        require(attempts[-1] == want_inst,
+                f"{label} mesh: device kernel instances {attempts} in "
+                f"{want_runs} replayed runs; the design implies {want_inst}")
+        mesh_launches = {k: attempts[-1][k]
+                         for k in ("piece_gemm_stacked", "skinny_gemm")}
+
+        # ---- (a): token prompts through Engine.generate, both backends ---
+        serve = None
+        if arch == "internvl2-1b":
+            serve = frontend_serve(torch, cfg, params, ex, mesh, live, label)
+    finally:
+        ex.close()
+        mesh.close()
+    row = {"phase": "families", "part": f"{part}: {arch}",
+           "model": f"{arch} at published widths and depth: "
+                    f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+                    f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+                    f"{cfg.d_ff} ({'gated ' if cfg.gated else ''}{cfg.act}), "
+                    f"vocab {cfg.vocab}; f32, seeded random weights",
+           "input": f"{helper}: B={batch}, {length} embeddings, then "
+                    f"{steps} greedy decode steps by token",
+           "coded": {"scheme": "mds", "n": N_WORKERS, "k": FAMILY_K,
+                     "faults": "dead={1}, straggler={2: 50x}",
+                     "pool_clock": "FakeClock + DeterministicDelay(1.0)",
+                     "mesh": "MeshExecutor(dead=(1,), stragglers=(2,))"},
+           "param_bytes": param_bytes(params),
+           "pool": {"wall_s": pool_wall, "ttft_ms": pool_ttft,
+                    "decode_ms_per_step": pool_tok_ms,
+                    "coded_runs": want_runs,
+                    "dispatches": ex.pool.dispatch_count,
+                    "skinny_gemm_by_regime": regimes(tally),
+                    "launches_by_shape": tally_rows(tally),
+                    "profile": pool_prof},
+           "mesh": {"turns": mesh_rows, "graphs": mesh.graph_count,
+                    "programs": mesh.compile_count,
+                    "launches_replayed": mesh_launches,
+                    "profiled_attempts": len(attempts),
+                    "profile": mesh_prof},
+           "uncoded": {"wall_s": ref_wall, "ttft_ms": ref_ttft,
+                       "decode_ms_per_step": ref_tok_ms,
+                       "profile": ref_prof},
+           "design": {"coded_runs": want_runs,
+                      "skinny_gemm_by_regime": want_regimes,
+                      "mesh_graphs": want_graphs,
+                      "mesh_programs": want_programs},
+           "pool_vs_uncoded": quality,
+           "mesh_vs_pool": "tokens and every step's logits bit for bit",
+           "engine": serve,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_part}
+    emit(row)
+    launches = {"skinny_gemm": counts["skinny_gemm"]
+                + mesh_launches["skinny_gemm"]
+                + (serve["pool_launches"] if serve else 0),
+                "piece_gemm_stacked": mesh_launches["piece_gemm_stacked"]}
+    del params, emb
+    return launches
+
+
+def frontend_serve(torch, cfg, params, ex, mesh, live, label) -> dict:
+    """(a)'s token prompts through ``Engine.generate`` on the pool and on
+    the mesh: logits against the uncoded model, the mesh's tokens and
+    logits the pool's bit for bit, coded runs and launches against the
+    design."""
+    import numpy as np
+    from repro_torch.serving import Engine, Request
+
+    n_req, T, new = FAMILY_SERVE
+    rng = np.random.default_rng(SEED + 45)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, T, dtype=np.int32),
+                    max_new=new) for i in range(n_req)]
+    buckets = [(list(range(n_req)), T, new)]
+    gemms = 3 if cfg.gated else 2
+    want_runs = gemms * cfg.n_layers * new  # the prefill and new - 1 steps
+    rows = {}
+    for name, executor in (("pool", ex), ("mesh", mesh)):
+        eng = Engine(cfg, params, coded=(N_WORKERS, FAMILY_K),
+                     executor=executor)
+        steps = record_steps(eng)
+        r0 = executor.run_count
+        zero_launch_counters()
+        with LaunchTally() as tally:
+            t0 = time.perf_counter()
+            out = eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        eng._bind_steps()
+        require(executor.run_count - r0 == want_runs,
+                f"{label} Engine on the {name}: "
+                f"{executor.run_count - r0} coded runs, the design implies "
+                f"{want_runs}")
+        if name == "pool":
+            tally_covered(torch, tally, f"{label} Engine")
+            require(sum(tally.counts.values()) == want_runs * (2 + live),
+                    f"{label} Engine: {sum(tally.counts.values())} "
+                    "skinny-GEMM launches")
+        ttft, _, per_tok = latency_rows(buckets, {c.rid: c for c in out})
+        rows[name] = {"out": out, "steps": steps, "wall_s": wall,
+                      "ttft_ms": ttft[T], "decode_ms_per_token": per_tok[T],
+                      "coded_runs": want_runs,
+                      "launches": read_launch_counters(),
+                      "skinny_gemm_by_regime": regimes(tally)}
+    pool, mx = rows["pool"], rows["mesh"]
+    require(all(np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(pool["out"], mx["out"]))
+            and all(torch.equal(a, b)
+                    for a, b in zip(pool["steps"], mx["steps"])),
+            f"{label} Engine: the mesh's tokens or logits are not the "
+            "pool's bit for bit")
+    gen = np.stack([c.tokens for c in pool["out"]])
+    refs = teacher_forced_refs(torch, cfg, params, reqs, buckets[0][0], T,
+                               new, gen)
+    quality = hold_to_uncoded(f"{label} Engine", buckets, pool["out"],
+                              pool["steps"], refs)
+    for r in rows.values():
+        del r["out"], r["steps"]
+    return {"requests": n_req, "prompt": T, "max_new": new, **rows,
+            "pool_vs_uncoded": quality, "pool_launches":
+                rows["pool"]["launches"]["skinny_gemm"]}
+
+
+def moe_mixture_f64(torch, cfg, moe, y) -> dict:
+    """``_moe_ffn(cfg, moe, y)`` held against the same mixture in f64 on
+    the card, one expert at a time: each expert over the (token, slot)
+    pairs ``moe_route`` keeps, weighted by the port's renormalised gates.
+
+    Two holds.  The largest error is within ``8 (u + sqrt(D + F) u32)`` of
+    the largest output: at most eight roundings to the model's type along
+    the chain (the buffer, h, g, silu(g), silu(g) h, the expert output,
+    the gated sum's cast) at u = 2^-8 in bf16 or u32 = 2^-24 in f32, and
+    f32 accumulations of depth D and F, whose independent roundings grow
+    as sqrt(depth) u32.  And every element is within a bound of the
+    port's roundoff to first order, elementwise,
+    from the f64 values and the magnitudes of the products: a product of
+    depth n accumulated in f32 is off by at most n u32 (|a| |b|), each
+    result rounded to the model's type by u |result| (u = u32 = 2^-24 in
+    f32, u16 = 2^-8 in bf16), silu's slope is below 1.1, and the errors
+    propagate through act(g) * h, the output product and the gated sum
+    (K terms in f32, then one rounding to the model's type).  The f32 gates
+    are held against gates from f64 logits at 4 D u32 max_e(|y| |router|)
+    (softmax and the top-k renormalisation each at most double a logit's
+    error)."""
+    import torch.nn.functional as F
+    from repro_torch.models import model as M
+
+    require(cfg.act == "silu", "the MoE configs use silu experts")
+    D, K, Fd = cfg.d_model, cfg.top_k, cfg.d_ff
+    u32 = 2.0 ** -24
+    u = 2.0 ** -8 if cfg.dtype == torch.bfloat16 else u32
+    flat = y.reshape(-1, D)
+    got = M._moe_ffn(cfg, moe, y).reshape(-1, D).double()
+    gates, eid, pos, keep, C = M.moe_route(cfg, moe["router"], flat)
+    y64 = flat.double()
+    r64 = moe["router"].double()
+    probs = torch.softmax(y64 @ r64, dim=-1)
+    g64 = probs.gather(1, eid.view(-1, K))
+    g64 = g64 / g64.sum(-1, keepdim=True).clamp(min=1e-9)
+    lm = (y64.abs() @ r64.abs()).amax(-1, keepdim=True)
+    gate_err = float(((gates.double() - g64).abs()
+                      / (4 * D * u32 * lm + 2 * u32)).max())
+    require(gate_err <= 1.0, f"MoE gates vs f64: err/tol {gate_err:.3g}")
+    slot_g = gates.double().reshape(-1)
+    tok = torch.arange(flat.shape[0], device=y.device).repeat_interleave(K)
+    want = torch.zeros_like(y64)
+    tol = torch.zeros_like(y64)
+    for e in range(cfg.n_experts):
+        s = ((eid == e) & keep).nonzero()[:, 0]
+        if not len(s):
+            continue
+        t = tok[s]
+        xe, ax = y64[t], y64[t].abs()
+        w_in, w_gate, w_out = (moe[n][e].double()
+                               for n in ("w_in", "w_gate", "w_out"))
+        h, g = xe @ w_in, xe @ w_gate
+        a = F.silu(g)
+        p = a * h
+        oe = p @ w_out
+        e_h = D * u32 * (ax @ w_in.abs()) + u * h.abs()
+        e_a = 1.1 * (D * u32 * (ax @ w_gate.abs()) + u * g.abs()) \
+            + u * a.abs()
+        e_p = a.abs() * e_h + h.abs() * e_a + u * p.abs()
+        e_o = (e_p @ w_out.abs() + Fd * u32 * (p.abs() @ w_out.abs())
+               + u * oe.abs())
+        gs = slot_g[s, None]
+        want.index_add_(0, t, gs * oe)
+        tol.index_add_(0, t, gs * (e_o + K * u32 * oe.abs()))
+    tol += u * want.abs()
+    err = (got - want).abs()
+    rel = float(err.max()) / float(want.abs().max())
+    rel_tol = 8 * (u + (D + Fd) ** 0.5 * u32)
+    require(rel <= rel_tol, f"_moe_ffn vs the f64 mixture: relative error "
+                            f"{rel:.3g} > {rel_tol:.3g}")
+    ratio = float((err / (tol + 1e-30)).max())
+    require(ratio <= 1.0, f"_moe_ffn vs the f64 mixture: err over the "
+                          f"first-order bound {ratio:.3g}")
+    return {"tokens": flat.shape[0], "capacity": C,
+            "dropped_slots": int((~keep).sum()),
+            "kept_slots": int(keep.sum()),
+            "max_abs_err": float(err.max()), "rel_err": rel,
+            "rel_tol": rel_tol, "max_bound": float(tol.max()),
+            "err_over_bound": ratio,
+            "gates_err_over_tol": gate_err,
+            "max_abs_out": float(want.abs().max())}
+
+
+def moe_input(torch, cfg, params, toks):
+    """Layer 0's FFN input at prefill: the attention block's output,
+    normed (``_attn_block_full`` up to its FFN)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.common import rms_norm
+
+    layer = params["layers"][0]
+    x = M._embed_in(cfg, params, toks)
+    pos = torch.arange(x.shape[1], device=x.device)
+    h = x + M._attn_full(cfg, layer["attn"], rms_norm(x, layer["attn_norm"]),
+                         pos, cfg.sliding_window)
+    return rms_norm(h, layer["ffn_norm"])
+
+
+class DropTally:
+    """Records each ``_moe_ffn`` call's token count, capacity and dropped
+    (token, slot) pairs while active."""
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+
+        self.calls, self._orig = [], M._moe_ffn
+
+        def counting(cfg, p, x):
+            flat = x.reshape(-1, x.shape[-1])
+            _, _, _, keep, C = M.moe_route(cfg, p["router"], flat)
+            self.calls.append((flat.shape[0], C, int((~keep).sum())))
+            return self._orig(cfg, p, x)
+
+        M._moe_ffn = counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+
+        M._moe_ffn = self._orig
+
+    def summary(self) -> list:
+        rows = {}
+        for tokens, C, drops in self.calls:
+            r = rows.setdefault((tokens, C), [0, 0, 0])
+            r[0] += 1
+            r[1] += drops
+            r[2] = max(r[2], drops)
+        return [{"tokens": t, "capacity": c, "calls": n, "dropped": d,
+                 "most_in_a_call": m} for (t, c), (n, d, m) in rows.items()]
+
+
+def families_moe(torch, part, arch, depth) -> None:
+    """(c) / (d): one MoE config at its published widths, depth cut, served
+    through ``Engine.generate``, its MoE FFN held against an f64 mixture."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.dist import FakeClock
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, Request
+
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    if arch == "dbrx-132b":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    widths = {"dbrx-132b": (6144, 48, 8, 128, 10752, 100352, 16, 4,
+                            torch.float32),
+              "kimi-k2-1t-a32b": (7168, 64, 8, 112, 2048, 163840, 384, 8,
+                                  torch.bfloat16)}
+    require((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+             cfg.vocab, cfg.n_experts, cfg.top_k, cfg.dtype) == widths[arch],
+            f"{arch} at its published widths")
+    label = f"families ({part}) {arch}"
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 50 + ord(part)), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_req, T, new = MOE_SERVE
+    rng = np.random.default_rng(SEED + 51)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, T, dtype=np.int32),
+                    max_new=new) for i in range(n_req)]
+    buckets = [(list(range(n_req)), T, new)]
+    toks = torch.as_tensor(np.stack([r.prompt for r in reqs]).astype(np.int64),
+                           device="cuda")
+
+    # ---- served uncoded: drops per call, then timed, then profiled ------
+    eng = Engine(cfg, params)
+    zero_launch_counters()
+    with DropTally() as drops:
+        out = eng.generate(reqs)
+    launches = read_launch_counters()  # uncoded: no kernel of the port
+    t0 = time.perf_counter()
+    timed_out = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ttft, _, per_tok = latency_rows(buckets, {c.rid: c for c in timed_out})
+    prof_out, _, prof, _ = device_profile(torch, lambda: eng.generate(reqs))
+    tokens = [c.tokens.tolist() for c in out]
+    require(all([c.tokens.tolist() for c in o] == tokens
+                for o in (timed_out, prof_out)),
+            f"{label}: three uncoded serves gave other tokens")
+
+    # ---- coded (10, 6) on the pool: the reference codes no MoE GEMM -----
+    coded = None
+    if part == "c":
+        ex = make_executor(FakeClock())
+        try:
+            zero_launch_counters()
+            ceng = Engine(cfg, params, coded=(N_WORKERS, FAMILY_K),
+                          executor=ex)
+            cout = ceng.generate(reqs)
+            wrappers = read_launch_counters()
+            require(ex.run_count == 0 and ex.pool.dispatch_count == 0
+                    and not any(wrappers.values()),
+                    f"{label}: coded (10, 6) ran {ex.run_count} coded runs, "
+                    f"{ex.pool.dispatch_count} dispatches, {wrappers}")
+            require([c.tokens.tolist() for c in cout] == tokens,
+                    f"{label}: the coded engine served other tokens")
+        finally:
+            ex.close()
+        coded = {"coded_runs": 0, "dispatches": 0, "wrapper_calls": wrappers,
+                 "tokens_equal_uncoded": True,
+                 "note": "the reference codes only the dense FFN's GEMMs "
+                         "(model.py _ffn -> _matmul); _moe_ffn, attention "
+                         "and the LM head are einsums there, so a coded MoE "
+                         "config runs no coded op"}
+
+    # ---- _moe_ffn on layer 0's prefill input against f64 ----------------
+    n64 = MOE_F64_TOKENS[arch]
+    y = moe_input(torch, cfg, params, toks if n64 is None
+                  else toks[:1, :n64])
+    mixture = moe_mixture_f64(torch, cfg, params["layers"][0]["moe"], y)
+    del y
+
+    checks = {}
+    if part == "c":
+        # prefill + decode against forward, with no drops (the reference's
+        # test_smoke_prefill_decode_consistency and its bound)
+        cfg4 = dataclasses.replace(cfg, capacity_factor=4.0)
+        lgp, cache = M.prefill(cfg4, params, toks, max_seq=T + 1)
+        nxt = lgp[..., : cfg.vocab].argmax(-1)
+        lgd, _ = M.decode_step(cfg4, params, cache, token=nxt)
+        full_last = M.forward(cfg4, params, torch.cat([toks, nxt], 1))[:, -1]
+        V = cfg.vocab
+        scale = float(full_last[:, :V].abs().max()) + 1e-9
+        rel = float((lgd[:, 0, :V] - full_last[:, :V]).abs().max()) / scale
+        require(rel < 2e-2, f"{label}: prefill + decode vs forward at "
+                            f"capacity 4.0: {rel:.3g} >= 2e-2")
+        del lgp, cache, lgd, full_last
+        # flash_causal_attention against the blockwise attention
+        plain = M.forward(cfg, params, toks)[..., :V]
+        flash = M.forward(dataclasses.replace(cfg, flash_vjp=True), params,
+                          toks)[..., :V]
+        ftol = 1e-4 * float(plain.abs().max())
+        ferr = float((flash - plain).abs().max())
+        require(ferr <= ftol, f"{label}: flash_vjp forward differs by "
+                              f"{ferr} > {ftol}")
+        del plain, flash
+        checks = {"prefill_decode_vs_forward_cf4": {"rel_err": rel,
+                                                    "bound": 2e-2},
+                  "flash_vs_blockwise": {
+                      "T": T, "H": cfg.n_heads, "K": cfg.n_kv_heads,
+                      "P": cfg.hd, "max_abs_err": ferr, "tol": ftol}}
+    peak = torch.cuda.max_memory_allocated()
+    if part == "d":
+        require(peak < KIMI_PEAK_LIMIT,
+                f"{label}: peak {peak} B >= {KIMI_PEAK_LIMIT:.0f} B")
+    emit({"phase": "families", "part": f"{part}: {arch}",
+          "model": f"{arch} at published widths (d_model {cfg.d_model}, "
+                   f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                   f"{cfg.hd}, {cfg.n_experts} experts top-{cfg.top_k} of "
+                   f"d_ff {cfg.d_ff}, vocab {cfg.vocab}), depth "
+                   f"{full.n_layers} -> {depth}; "
+                   f"{str(cfg.dtype).replace('torch.', '')} (router f32), "
+                   "seeded random weights",
+          "requests": n_req, "prompt": T, "max_new": new,
+          "param_bytes": param_bytes(params), "params": M.param_count(params),
+          "init_s": init_s, "init_peak_bytes": init_peak,
+          "wall_s": wall, "ttft_ms": ttft[T],
+          "decode_ms_per_token": per_tok[T], "profile": prof,
+          "launches": launches, "drops_per_call": drops.summary(),
+          "coded": coded,
+          "moe_vs_f64": mixture, **checks,
+          "peak_bytes": peak, "peak_limit": KIMI_PEAK_LIMIT
+          if part == "d" else None,
+          "seconds": time.perf_counter() - t_part})
+    del params, eng
+
+
+def phase_families(torch) -> dict:
+    """Parts (a) to (d), one JSON line each, after releasing every earlier
+    phase's model; returns the counted paths' launches."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families", "part": "start",
+          "memory_allocated": torch.cuda.memory_allocated(),
+          "memory_reserved": torch.cuda.memory_reserved()})
+    counts = {}
+    for spec in FRONTEND_PARTS:
+        for k, n in families_frontend(torch, *spec).items():
+            counts[k] = counts.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    for spec in MOE_PARTS:
+        families_moe(torch, *spec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_META = {
     "skinny_gemm": {
@@ -3262,9 +4003,11 @@ def main() -> int:
         time_kernels(torch, args.time_kernels)
         return 0
 
-    # the yardsticks and the plain versions run in full f32 on the card
+    # the yardsticks and the plain versions run in full f32 on the card,
+    # and bf16 products accumulate in f32, as the reference's do
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
 
     seconds = {}
@@ -3283,7 +4026,7 @@ def main() -> int:
         if "kernels" in phases else None
     if "coded_ops" in phases:
         timed("coded_ops", phase_coded_ops, torch)
-    by_path = {}
+    by_path, zamba2 = {}, None
     if "vgg16" in phases:
         by_path["vgg16"] = timed("vgg16", phase_vgg16, torch)
     if "zamba2" in phases:
@@ -3295,6 +4038,9 @@ def main() -> int:
         by_path.update(timed("adaptive", phase_adaptive, torch, zamba2))
     if "serving" in phases:
         by_path.update(timed("serving", phase_serving, torch, zamba2))
+    if "families" in phases:
+        zamba2 = None  # the earlier phases' model: released first
+        by_path["families"] = timed("families", phase_families, torch)
 
     if set(phases) != set(ALL_PHASES):
         print(f"partial run ({phases}): no result line", file=sys.stderr)

@@ -1,9 +1,5 @@
-"""Architecture config registry (``--arch <id>``).
-
-Only the configurations whose every module is ported are registered; the
-reference's others (dbrx-132b and kimi-k2-1t-a32b with MoE, musicgen-medium
-and internvl2-1b with their frontends) wait for ROADMAP.md, Queue A item 3.
-"""
+"""Architecture config registry (``--arch <id>``): the reference's ten
+architectures, in the reference's order."""
 from __future__ import annotations
 
 import importlib
@@ -16,8 +12,12 @@ _MODULES = {
     "zamba2-1.2b": "zamba2_1p2b",
     "mamba2-2.7b": "mamba2_2p7b",
     "minicpm-2b": "minicpm_2b",
+    "dbrx-132b": "dbrx_132b",
     "qwen3-32b": "qwen3_32b",
     "deepseek-coder-33b": "deepseek_coder_33b",
+    "musicgen-medium": "musicgen_medium",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "internvl2-1b": "internvl2_1b",
 }
 
 ARCHS = tuple(_MODULES)

@@ -10,8 +10,9 @@ packages on the same numpy input.
 * Decoder models (``models/model.py``): the ``init_params`` tree —
   ``layers``, ``final_norm``, ``embed`` and, for hybrids, ``shared_attn``.
   The reference stacks homogeneous layers (one dict whose leaves carry a
-  leading layer axis); the port keeps a per-layer list, so a stacked
-  ``layers`` is unstacked on the way in.
+  leading layer axis: an MoE layer's experts arrive as (L, E, D, F)); the
+  port keeps a per-layer list, so a stacked ``layers`` is unstacked on
+  the way in.
 """
 from __future__ import annotations
 
@@ -95,10 +96,11 @@ def model_params_from_numpy(params: Mapping, *,
     """Reference decoder parameters (numpy or jax arrays) -> the port's
     tree of tensors on ``device``.  Each leaf keeps its own type (bfloat16
     stays bfloat16, float32 stays float32) unless ``dtype`` is given, which
-    then applies to every floating leaf."""
+    then applies to every floating leaf but an MoE ``router``: the
+    reference routes in f32 whatever the model's type."""
     dev = resolve_device(device)
 
-    def leaf(a) -> torch.Tensor:
+    def leaf(a, cast: bool) -> torch.Tensor:
         a = np.asarray(a)
         name = str(a.dtype)
         if name not in _TORCH_DTYPES:
@@ -108,16 +110,23 @@ def model_params_from_numpy(params: Mapping, *,
             t = torch.from_numpy(np.array(a, dtype=np.float32))
         else:
             t = torch.from_numpy(np.array(a))  # a copy
-        if dtype is not None and t.is_floating_point():
+        if cast and dtype is not None and t.is_floating_point():
             tdt = dtype
         return t.to(tdt).to(dev)
+
+    def convert(tree, key=None):
+        if isinstance(tree, Mapping):
+            return {k: convert(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [convert(v, key) for v in tree]
+        return leaf(tree, cast=key != "router")
 
     if "layers" not in params or "embed" not in params:
         raise ValueError("need an init_params tree with 'layers' and 'embed'")
     tree = dict(params)
     if isinstance(tree["layers"], Mapping):
         tree["layers"] = _unstack(tree["layers"])
-    return _tree_map(leaf, tree)
+    return convert(tree)
 
 
 def model_params_to_numpy(params: Mapping) -> dict:

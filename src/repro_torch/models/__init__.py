@@ -26,6 +26,7 @@ from .cnn import (
     forward_plan,
     init_cnn,
 )
+from .frontends import synthetic_frames, synthetic_patches
 
 __all__ = [
     "ModelConfig", "init_params", "forward", "prefill", "prefill_resume",
@@ -35,4 +36,5 @@ __all__ = [
     "type1_threshold", "init_small_cnn", "small_cnn_forward",
     "small_cnn_layers", "init_vgg16", "vgg16_forward", "init_resnet18",
     "resnet18_forward", "forward_plan", "init_cnn",
+    "synthetic_frames", "synthetic_patches",
 ]

@@ -5,8 +5,10 @@ cache (the port of ``repro.models.attention``).
 The reference writes these in plain jnp, with no Pallas kernel, so the port
 writes them in plain torch: the same online softmax over KV blocks, the
 same masks and the same f32 accumulation.  ``chunk_attention`` is the
-chunked-prefill primitive.  ``flash_causal_attention`` is not ported yet
-(ROADMAP.md, Queue A item 3).
+chunked-prefill primitive.  ``flash_causal_attention`` is the reference's
+flash form: its forward (``_flash_fwd_impl``, which also returns the
+log-sum-exp) is the blockwise online softmax, and its memory-saving
+backward is not ported (see :func:`flash_causal_attention`).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import math
 import torch
 
 __all__ = ["blockwise_causal_attention", "decode_attention",
-           "chunk_attention"]
+           "chunk_attention", "flash_causal_attention"]
 
 NEG_INF = -1e30
 
@@ -25,28 +27,23 @@ def _gqa_scores(qb: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bqkgp,bskp->bkgqs", qb.float(), kb.float())
 
 
-def blockwise_causal_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    window: int = 0,
-    block_q: int = 512,
-    block_k: int = 512,
-) -> torch.Tensor:
-    """Causal (optionally sliding-window) attention.
+def _flash_fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int, block_q: int, block_k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Causal (optionally sliding-window) attention by an online softmax
+    over KV blocks, one Q block at a time.
 
-    q: (B, T, H, P); k, v: (B, T, K, P) with H = K * G (GQA).
-    Returns (B, T, H, P) in q.dtype.  The reference's ``unroll`` (a hint
-    for XLA's cost analysis) has no counterpart: the port loops in Python.
+    q: (B, T, H, P); k, v: (B, T, K, P) with H = K * G (GQA).  Returns
+    (out (B, T, H, P) in q.dtype, lse (B, K, G, T) f32), the log-sum-exp
+    of each query's masked scores.  T is padded internally to a multiple
+    of lcm(block_q, block_k): padded keys sit at positions > every real
+    query so the causal mask hides them; padded query rows are sliced off.
     """
     B, T, H, P = q.shape
     K = k.shape[2]
     G = H // K
     block_q = min(block_q, T)
     block_k = min(block_k, T)
-    # pad T to block multiples: padded keys sit at positions > every real
-    # query so the causal mask hides them; padded query rows are sliced off.
     pad = -T % math.lcm(block_q, block_k)
     if pad:
         p4 = (0, 0, 0, 0, 0, pad)
@@ -62,7 +59,7 @@ def blockwise_causal_attention(
     q_pos = torch.arange(block_q, device=dev)
     k_pos = torch.arange(block_k, device=dev)
 
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qblk = qb[:, qi]  # (B, bq, K, G, P)
         m = torch.full((B, K, G, block_q), NEG_INF, dtype=torch.float32,
@@ -89,8 +86,41 @@ def blockwise_causal_attention(
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)  # (B, K, G, bq, P)
         outs.append(out.permute(0, 3, 1, 2, 4))            # (B, bq, K, G, P)
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
     out = torch.stack(outs, dim=1).reshape(B, Tf, H, P)[:, :T]
-    return out.to(q.dtype)
+    lse = torch.cat(lses, dim=-1)[..., :T]
+    return out.to(q.dtype), lse
+
+
+def blockwise_causal_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int = 0,
+    block_q: int = 512,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention.
+
+    q: (B, T, H, P); k, v: (B, T, K, P) with H = K * G (GQA).
+    Returns (B, T, H, P) in q.dtype.  The reference's ``unroll`` (a hint
+    for XLA's cost analysis) has no counterpart: the port loops in Python.
+    """
+    return _flash_fwd_impl(q, k, v, window, block_q, block_k)[0]
+
+
+def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, window: int = 0,
+                           block_q: int = 512, block_k: int = 512
+                           ) -> torch.Tensor:
+    """The reference's flash attention, forward only: ``_flash_fwd_impl``'s
+    output.  The reference pairs it with a custom VJP that recomputes the
+    scores block by block from ``lse`` instead of saving the O(T^2)
+    probabilities (``_flash_bwd``); that backward is not ported yet
+    (ROADMAP.md, Queue A item 5, training).  Autograd differentiates this
+    plain torch body as it stands, saving the per-block probabilities."""
+    return _flash_fwd_impl(q, k, v, window, block_q, block_k)[0]
 
 
 def decode_attention(

@@ -57,7 +57,8 @@ def he_init(gen: torch.Generator, shape, dtype=torch.bfloat16, fan_in=None,
     dev = resolve_device(device)
     fan_in = fan_in or shape[0]
     w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32) * (2.0 / fan_in) ** 0.5
+                    dtype=torch.float32)
+    w.mul_((2.0 / fan_in) ** 0.5)  # in place: one f32 copy of the shape
     return w.to(device=dev, dtype=dtype)
 
 
@@ -68,5 +69,6 @@ def lecun_init(gen: torch.Generator, shape, dtype=torch.bfloat16, fan_in=None,
     dev = resolve_device(device)
     fan_in = fan_in or shape[0]
     w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32) * (1.0 / fan_in) ** 0.5
+                    dtype=torch.float32)
+    w.mul_((1.0 / fan_in) ** 0.5)  # in place: one f32 copy of the shape
     return w.to(device=dev, dtype=dtype)

@@ -4,14 +4,16 @@ One functional model with a per-layer ``block_kind`` pattern:
 
 * ``attn``  — pre-norm GQA/MQA attention (+ optional qk_norm, sliding
               window) followed by a dense (optionally gated) FFN.
-* ``moe``   — attention followed by a routed mixture of experts: not ported
-              yet (ROADMAP.md, Queue A item 3).
+* ``moe``   — attention followed by a top-k routed mixture-of-experts FFN
+              (capacity-based dispatch; the experts' products are batched
+              GEMMs outside the coded pipeline, as in the reference).
 * ``mamba`` — Mamba2 SSD block (models/ssm.py), whose chunk runs the SSD
               kernel.
 
 Hybrid architectures (zamba2) interleave ``mamba`` blocks with a *shared*
 attention block applied every ``shared_attn_period`` layers (single weight
-set, Zamba2-style).
+set, Zamba2-style).  Audio/VLM architectures take precomputed frame/patch
+embeddings instead of token ids (``models/frontends.py``).
 
 Parameters are nested dicts with the reference's names and layouts, with
 one difference: ``params["layers"]`` is always a per-layer list (the
@@ -19,16 +21,17 @@ reference stacks homogeneous layers for ``lax.scan``; the port runs
 eagerly, layer by layer, in Python), and so is ``cache["layers"]``.
 ``repro_torch.convert`` unstacks the reference's parameters.
 
-The FFN's GEMMs are the paper's type-1 operators: with ``coded_n`` set they
-run through ``core/coded_linear.py`` (split, encode, n piece GEMMs, decode
-at the k-th arrival) — on the worker pool when an executor is installed
-with :func:`coded_executor`.
+The dense FFN's GEMMs are the paper's type-1 operators: with ``coded_n``
+set they run through ``core/coded_linear.py`` (split, encode, n piece
+GEMMs, decode at the k-th arrival) — on the worker pool when an executor
+is installed with :func:`coded_executor`.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import math
 import threading
 from typing import Any
 
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from .attention import (blockwise_causal_attention, chunk_attention,
-                        decode_attention)
+                        decode_attention, flash_causal_attention)
 from .common import lecun_init, rms_norm, rope, rope_at
 from .ssm import (SSMDims, MambaState, init_mamba_params, mamba_forward,
                   mamba_step)
@@ -45,9 +48,6 @@ from .ssm import (SSMDims, MambaState, init_mamba_params, mamba_forward,
 __all__ = ["ModelConfig", "init_params", "forward", "prefill",
            "prefill_resume", "supports_prefill_pack", "decode_step",
            "init_cache", "param_count", "coded_executor", "current_executor"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue A item 3)"
-
 
 # ---------------------------------------------------------------------------
 # executor context: live distributed execution of the coded GEMMs
@@ -127,7 +127,8 @@ class ModelConfig:
     remat: bool = False
     unstacked_exec: bool = False
     attn_unroll: bool = False
-    # flash-attention custom VJP: not ported yet
+    # attention through ``flash_causal_attention`` (forward only: the
+    # reference's custom VJP is not ported)
     flash_vjp: bool = False
 
     @property
@@ -187,6 +188,31 @@ def _init_ffn(gen, cfg: ModelConfig, dev) -> dict:
     return p
 
 
+def _init_experts(gen, shape, dtype, fan_in: int, dev) -> torch.Tensor:
+    """An (E, a, b) expert tensor drawn expert by expert: ``lecun_init``
+    draws its whole shape in f32 before the cast, which for kimi-k2's
+    (384, 7168, 2048) would be a 22.5 GB temporary per tensor; one
+    expert's f32 slab is 1/E of that."""
+    w = torch.empty(shape, dtype=dtype, device=dev)
+    for e in range(shape[0]):
+        w[e] = lecun_init(gen, shape[1:], dtype, fan_in=fan_in, device=dev)
+    return w
+
+
+def _init_moe(gen, cfg: ModelConfig, dev) -> dict:
+    """Router ``(D, E)`` in f32 whatever ``cfg.dtype``; the experts'
+    ``w_in``, ``w_gate`` ``(E, D, F)`` and ``w_out`` ``(E, F, D)`` in
+    ``cfg.dtype``."""
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": lecun_init(gen, (D, E), torch.float32, fan_in=D,
+                             device=dev),
+        "w_in": _init_experts(gen, (E, D, Fd), cfg.dtype, D, dev),
+        "w_gate": _init_experts(gen, (E, D, Fd), cfg.dtype, D, dev),
+        "w_out": _init_experts(gen, (E, Fd, D), cfg.dtype, Fd, dev),
+    }
+
+
 def _init_layer(cfg: ModelConfig, kind: str, gen, dev) -> dict:
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32,
                                 device=dev)
@@ -194,10 +220,13 @@ def _init_layer(cfg: ModelConfig, kind: str, gen, dev) -> dict:
         return {"norm": zeros(),
                 "mamba": init_mamba_params(gen, cfg.ssm_dims, cfg.dtype,
                                            device=dev)}
+    layer = {"attn_norm": zeros(), "attn": _init_attn(gen, cfg, dev),
+             "ffn_norm": zeros()}
     if kind == "moe":
-        raise NotImplementedError(f"the MoE FFN {_NOT_PORTED}")
-    return {"attn_norm": zeros(), "attn": _init_attn(gen, cfg, dev),
-            "ffn_norm": zeros(), "ffn": _init_ffn(gen, cfg, dev)}
+        layer["moe"] = _init_moe(gen, cfg, dev)
+    else:
+        layer["ffn"] = _init_ffn(gen, cfg, dev)
+    return layer
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -342,8 +371,59 @@ def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return _matmul(cfg, h, p["w_out"])
 
 
+def moe_route(cfg: ModelConfig, router: torch.Tensor, flat: torch.Tensor):
+    """Top-k routing with capacity for ``flat`` (Tt, D) tokens.
+
+    Returns ``(gates (Tt, K) f32, eid (Tt*K,), pos (Tt*K,), keep (Tt*K,),
+    C)``: the renormalised gates, each (token, slot)'s expert, its
+    exclusive position among that expert's slots in flattened (Tt*K)
+    order, whether it fits the capacity ``C = ceil(Tt*K/E *
+    capacity_factor)``, and C.  ``(~keep).sum()`` is the number of
+    dropped slots."""
+    E, K = cfg.n_experts, cfg.top_k
+    Tt = flat.shape[0]
+    logits = flat.float() @ router                           # (Tt, E)
+    gates, idx = torch.topk(torch.softmax(logits, dim=-1), K, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    C = math.ceil(Tt * K / E * cfg.capacity_factor)
+    eid = idx.reshape(-1)                                    # (Tt*K,)
+    # int32: kimi-k2's table at 2048 prefill tokens is 16384 x 384
+    onehot = F.one_hot(eid, E).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    pos = pos_in_e.gather(1, eid[:, None])[:, 0]
+    return gates, eid, pos, pos < C, C
+
+
 def _moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(f"the MoE FFN {_NOT_PORTED}")
+    """Top-k routed MoE with capacity-based dispatch (the reference's
+    ``_moe_ffn``).
+
+    x: (B, T, D).  Each token goes to its top_k experts; each expert takes
+    at most C slots (``moe_route``), the rest are dropped.  The kept slots
+    are written into an (E, C, D) buffer by plain indexed assignment (the
+    kept (expert, position) pairs are unique, so this is the reference's
+    scatter-add, deterministic on the card), the experts run as three
+    batched GEMMs, and each token sums its slots' outputs weighted by the
+    gates in f32."""
+    Bsz, T, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    flat = x.reshape(-1, D)
+    Tt = flat.shape[0]
+    gates, eid, pos, keep, C = moe_route(cfg, p["router"], flat)
+    kept = keep.nonzero()[:, 0]
+    e_k, p_k = eid[kept], pos[kept]
+    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
+    buf[e_k, p_k] = flat[kept // K]
+
+    h = torch.bmm(buf, p["w_in"])                            # (E, C, F)
+    g = _act(cfg, torch.bmm(buf, p["w_gate"]))
+    out_e = torch.bmm(g * h, p["w_out"])                     # (E, C, D)
+
+    gathered = torch.zeros((Tt * K, D), dtype=out_e.dtype, device=x.device)
+    gathered[kept] = out_e[e_k, p_k]
+    combined = (gathered.reshape(Tt, K, D).float()
+                * gates[..., None]).sum(dim=1)
+    return combined.to(x.dtype).reshape(Bsz, T, D)
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
@@ -358,7 +438,8 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
 
 def _attention(cfg: ModelConfig, q, k, v, window: int) -> torch.Tensor:
     if cfg.flash_vjp:
-        raise NotImplementedError(f"flash_causal_attention {_NOT_PORTED}")
+        return flash_causal_attention(q, k, v, window, cfg.block_q,
+                                      cfg.block_k)
     return blockwise_causal_attention(q, k, v, window=window,
                                       block_q=cfg.block_q,
                                       block_k=cfg.block_k)

@@ -1,5 +1,6 @@
-"""The port's decoder model (Zamba2 / Mamba2 smoke variants) vs the JAX
-reference, on the reference's own parameters carried across through numpy.
+"""The port's decoder model (the smoke variants of all ten architectures)
+vs the JAX reference, on the reference's own parameters carried across
+through numpy.
 
 Logits are compared at ``1e-4 * max|logit|`` in f32; every cache leaf at
 1e-4 of its own largest magnitude.  The building blocks (norm, RoPE,
@@ -113,6 +114,8 @@ def test_prefill_decode_consistency_within_the_port(pair):
     """The reference's test_smoke_prefill_decode_consistency, on the port:
     prefill + decode == full forward on the reduced variant."""
     _, _, _, cfg, params = pair
+    if cfg.is_moe:  # as the reference's test: no capacity drops
+        cfg = dataclasses.replace(cfg, capacity_factor=4.0)
     toks = torch.as_tensor(_tokens(cfg, 16, 3))
     lgp, cache = TM.prefill(cfg, params, toks, max_seq=20)
     nxt = lgp.argmax(-1)
@@ -171,26 +174,26 @@ def test_coded_matmul_path_matches_reference():
 
 
 def test_not_ported_parts_raise():
-    cfg = tconfigs.smoke_config("zamba2-1.2b")
-    # prefill_resume is ported: outside dense attention it raises the
-    # reference's error (its positive parity is
-    # test_prefill_resume_matches_reference)
-    with pytest.raises(ValueError, match="dense-attention"):
-        TM.prefill_resume(cfg, {}, {}, None)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        TM._moe_ffn(cfg, {}, torch.zeros(1, 1, 4))
-    moe = dataclasses.replace(cfg, block="attn", n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        TM.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
-    flash = dataclasses.replace(cfg, flash_vjp=True)
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+    """Every part of the decoder is ported.  What the reference refuses,
+    the port refuses with the reference's errors: chunked resume and
+    packed prefill outside dense attention (SSM state, MoE capacity
+    routing)."""
+    toks = np.zeros((1, 4), np.int32)
+    for arch in ("zamba2-1.2b", "dbrx-132b", "kimi-k2-1t-a32b"):
+        jc, tc = jconfigs.smoke_config(arch), tconfigs.smoke_config(arch)
+        tp = TM.init_params(tc, torch.Generator().manual_seed(0),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        TM.forward(flash, params, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(ValueError, match="lens="):
-        TM.prefill(cfg, params, torch.zeros((1, 4), dtype=torch.long),
-                   lens=[4])
-    assert not TM.supports_prefill_pack(cfg)
+        jp = JM.init_params(jc, jax.random.PRNGKey(0))
+        for call in (
+                lambda M, c, p, t: M.prefill_resume(c, p, {"pos": 0}, t),
+                lambda M, c, p, t: M.prefill(c, p, t, lens=[4])):
+            with pytest.raises(ValueError) as want:
+                call(JM, jc, jp, jnp.asarray(toks))
+            with pytest.raises(ValueError) as got:
+                call(TM, tc, tp, torch.as_tensor(toks))
+            assert str(got.value) == str(want.value)
+        assert not TM.supports_prefill_pack(tc)
+        assert not JM.supports_prefill_pack(jc)
 
 
 # ---------------------------------------------------------------------------
@@ -298,9 +301,9 @@ def test_input_shapes_and_registry():
             tconfigs.INPUT_SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in jconfigs.INPUT_SHAPES.items()}
     assert tconfigs.LONG_WINDOW == jconfigs.LONG_WINDOW
-    assert set(tconfigs.ARCHS) <= set(jconfigs.ARCHS)
+    assert tconfigs.ARCHS == jconfigs.ARCHS
     with pytest.raises(KeyError):
-        tconfigs.get_config("dbrx-132b")  # MoE: not ported yet
+        tconfigs.get_config("llama-70b")
 
 
 @pytest.mark.parametrize("arch,table", [
@@ -310,10 +313,14 @@ def test_input_shapes_and_registry():
     ("minicpm-2b", (40, 2304, 36, 36, 5760, 122753)),
     ("qwen3-32b", (64, 5120, 64, 8, 25600, 151936)),
     ("deepseek-coder-33b", (62, 7168, 56, 8, 19200, 32256)),
+    ("dbrx-132b", (40, 6144, 48, 8, 10752, 100352)),
+    ("musicgen-medium", (48, 1536, 24, 24, 6144, 2048)),
+    ("kimi-k2-1t-a32b", (61, 7168, 64, 8, 2048, 163840)),
+    ("internvl2-1b", (24, 896, 14, 2, 4864, 151655)),
 ])
 def test_full_config_matches_published_shapes(arch, table):
-    """tests/test_arch_smoke.py's stale-config check, for the configs the
-    port holds."""
+    """tests/test_arch_smoke.py's stale-config check, on the port's
+    configs."""
     cfg = tconfigs.get_config(arch)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.d_ff, cfg.vocab) == table
@@ -322,9 +329,16 @@ def test_full_config_matches_published_shapes(arch, table):
              "gemma-2b": lambda c: c.head_dim == 256 and c.act == "geglu",
              "minicpm-2b": lambda c: c.act == "silu" and c.gated,
              "qwen3-32b": lambda c: c.qk_norm and c.head_dim == 128,
-             "deepseek-coder-33b": lambda c: c.rope_theta == 1e5}
+             "deepseek-coder-33b": lambda c: c.rope_theta == 1e5,
+             "dbrx-132b": lambda c: c.n_experts == 16 and c.top_k == 4,
+             "musicgen-medium": lambda c: (c.frontend == "audio"
+                                           and not c.gated),
+             "kimi-k2-1t-a32b": lambda c: c.n_experts == 384 and c.top_k == 8,
+             "internvl2-1b": lambda c: (c.frontend == "vision"
+                                        and c.rope_theta == 1e6)}
     assert extra[arch](cfg)
-    assert TM.supports_prefill_pack(cfg) == (cfg.block == "attn")
+    assert TM.supports_prefill_pack(cfg) == (cfg.block == "attn"
+                                             and not cfg.is_moe)
 
 
 def test_convert_round_trip(pair):
