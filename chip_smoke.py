@@ -38,7 +38,12 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    and unaligned edges of the variants) also runs each
                    coding variant that can take it, on the whole and on a
                    column block, bit for bit the chosen variant's, and is
-                   timed beside a device copy of the same bytes.
+                   timed beside a device copy of the same bytes.  The SSD
+                   backward (``ssd_chunk_scan_bwd``, four reversed passes)
+                   at the Zamba2 train shape (B 4, T 512), with h0 and the
+                   final state's gradient, a ragged chunk, Mamba2-2.7B's
+                   heads, bf16 and odd widths, and each reversed pass alone,
+                   against its plain version and f64, two runs bit for bit.
 3. ``coded_ops`` — ``coded_conv2d`` and ``coded_matmul`` through a
                    ``CodedExecutor`` with one dead worker and one straggler,
                    against the uncoded result; the same ops on a
@@ -135,6 +140,22 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    reference codes no MoE GEMM), prefill + decode against
                    ``forward`` at capacity 4.0, and the flash forward
                    against the blockwise one; (d) peaks under 45 GB.
+10. ``train``    — training through the SSD backward kernel: (a) Zamba2-1.2B
+                   at published widths, depth 6 (the shared block after
+                   layer 5), f32, B 2 x T 512 from ``TokenStream``: one
+                   gradient on the kernels against the f64 gradient of the
+                   plain versions, leaf by leaf, no leaf zero, 6 SSD
+                   forward and 6 backward launches; (c) its params and
+                   AdamW state after one step, and a bf16 leaf, saved and
+                   loaded back bit for bit; (b) ``train_loop`` on
+                   Zamba2-1.2B at published widths and depth, f32, B 4 x T
+                   512, 10 steps: the loss falls, 38 SSD forward and 38
+                   backward launches a step, no skinny GEMM, s/step,
+                   tokens/s, peak memory and a profiled step; (d) the flash
+                   backward at gemma-2b's attention widths against autograd
+                   through the blockwise forward, and gemma-2b at published
+                   widths, depth 1, differentiated with ``flash_vjp=True``
+                   against ``False``, leaf by leaf.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  There is no fallback: no GPU, a kernel
@@ -143,7 +164,7 @@ non-zero exit code and no result line.
 
 ``--phases kernels,zamba2`` runs a subset (for debugging; the result line is
 only printed when every phase ran; ``zamba2_mesh``, ``adaptive`` and
-``serving`` need ``zamba2``; ``families`` stands alone).
+``serving`` need ``zamba2``; ``families`` and ``train`` stand alone).
 ``--time-kernels CHECKOUT`` only times the skinny GEMM, the conv and the
 SSD scan of the port in another checkout (a parent commit unpacked beside
 this one) at this script's f32 cases, so that two versions can be held
@@ -169,7 +190,7 @@ L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 SEED = 0
 N_WORKERS = 10
 ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16", "zamba2",
-              "zamba2_mesh", "adaptive", "serving", "families")
+              "zamba2_mesh", "adaptive", "serving", "families", "train")
 
 
 def emit(obj: dict) -> None:
@@ -1037,6 +1058,227 @@ def check_ssd_passes(torch, timer, gen) -> list[dict]:
     return out
 
 
+def ssd_bwd_cases(torch):
+    """(name, B, T, H, P, N, chunk, h0, dtype, headline) of the SSD
+    backward: the Zamba2-1.2B train shape (the ``train`` phase's), with and
+    without h0 (with h0 the final state's gradient is given too), a ragged
+    last chunk, Mamba2-2.7B's heads, bf16 x / Bm / Cm, and widths that are
+    no multiple of 4."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    z = (64, 64, 64)
+    return [
+        ("zamba2 train B=4 T=512", 4, 512, *z, 128, False, f32, True),
+        ("zamba2 train B=4 T=512, h0 and dhT", 4, 512, *z, 128, True, f32,
+         False),
+        ("zamba2 B=2 T=200 (ragged chunk), h0", 2, 200, *z, 128, True, f32,
+         False),
+        ("mamba2-2.7b heads B=2 T=512", 2, 512, 80, 64, 128, 128, False, f32,
+         False),
+        ("zamba2 train B=4 T=512 bf16 x", 4, 512, *z, 128, False, bf16,
+         False),
+        ("odd widths P=18 N=10 L=42, h0", 3, 100, 5, 18, 10, 42, True, f32,
+         False),
+    ]
+
+
+# An SSD gradient's tolerance, relative to the largest magnitude of the f64
+# gradient it is held against: every gradient is an f32 sum of at most a
+# few thousand products (L (P + N) inside a chunk, the heads for dB and dC,
+# B T for dA), and such a sum is within ~10^3 2^-24 ~ 6e-5 of its sum of
+# magnitudes.
+SSD_BWD_TOL = 1e-4
+
+
+def ssd_saved_plain(torch, x, dt, A, Bm, Cm, h0, chunk):
+    """(G, Hin, cum_end) of the forward by the passes' plain versions (f64
+    for f64 input)."""
+    import repro_torch.kernels.ssd_chunk  # noqa: F401
+    K = sys.modules["repro_torch.kernels.ssd_chunk"]
+
+    G = K.ssd_cb_plain(Bm, Cm, chunk)
+    S, ce = K.ssd_states_plain(x, dt, A, Bm, chunk)
+    Hin, _ = K.ssd_state_pass_plain(S, ce, h0)
+    return G, Hin, ce
+
+
+def ssd_bwd_work(B, T, H, P, N, chunk) -> dict:
+    """FLOPs of each reversed pass over the rows the sequence has: out_bwd
+    the causal dy x^T and M^T dy (L (L + 1) / 2 x P each), the incoming
+    state's dC and dHin (L x P x N each) and its row term of d(cum), C . dC
+    (L x N); state_pass_bwd two per state
+    element and chunk; states_bwd x dS, B dS^T (L x P x N each) and dw;
+    cb_bwd the heads' dG summed and dG B, dG^T C (causal, x N)."""
+    c = -(-T // chunk)
+    w = dict.fromkeys(("out_bwd", "state_pass_bwd", "states_bwd", "cb_bwd"),
+                      0)
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+        tri = n * (n + 1) // 2
+        w["out_bwd"] += H * (2 * tri * P + 2 * n * P * N + n * N)
+        w["states_bwd"] += H * (2 * n * P * N + n * N)
+        w["cb_bwd"] += H * tri / 2 + 2 * tri * N
+    w["state_pass_bwd"] = c * H * P * N
+    return {k: 2.0 * B * v for k, v in w.items()}
+
+
+def ssd_bwd_bytes(B, T, H, P, N, chunk, item, h0) -> dict:
+    """Bytes of each reversed pass and of the whole backward: each input
+    read once and each output written once (f32 but x, Bm, Cm, which are
+    ``item`` bytes)."""
+    c = -(-T // chunk)
+    L = chunk
+    x, bc = B * T * H * P * item, B * T * N * item
+    f = lambda *n: 4 * math.prod(n)
+    dy, dt, G = f(B, T, H, P), f(B, T, H), f(B, c, L, L)
+    st, row = f(B, c, H, P, N), f(B, c, H, L)
+    dGh, dBC = f(B, c, H, L, L), f(B, c, H, L, N)
+    h = f(B, H, P, N)
+    whole = (x + 2 * bc + dt + G + st + f(B, c, H) + dy + (2 * h if h0 else 0)
+             + f(B, T, H, P) + dt + f(H) + 2 * f(B, T, N) + (h if h0 else 0))
+    return {
+        "out_bwd": x + bc + dt + G + st + dy + f(B, T, H, P) + dGh + dBC
+        + st + 2 * row,
+        "state_pass_bwd": 2 * st + f(B, c, H) + (h if h0 else 0) + st
+        + f(B, c, H) + h,
+        "states_bwd": x + bc + dt + st + 2 * row + f(B, c, H)
+        + 2 * f(B, T, H, P) + dBC + dt + f(B, c, H),
+        "cb_bwd": 2 * bc + dGh + 2 * dBC + f(B, c, H) + 2 * f(B, T, N) + f(H),
+        "whole": whole}
+
+
+def ssd_bwd_compare(torch, name, got, refs: dict, names) -> tuple:
+    """Each output of ``got`` against each reference's: max |err| within
+    SSD_BWD_TOL of the reference's largest magnitude.  Returns (errors,
+    err / tol ratios)."""
+    errs, ratios = {}, {}
+    for ref_name, ref in refs.items():
+        for n, a, b in zip(names, got, ref):
+            require(tuple(a.shape) == tuple(b.shape)
+                    and bool(torch.isfinite(a).all()),
+                    f"{name}: {n} shape {tuple(a.shape)} or non-finite")
+            e = float((a.double() - b.double()).abs().max())
+            scale = float(b.double().abs().max()) + 1e-30
+            key = f"{n} vs {ref_name}"
+            errs[key] = e
+            ratios[key] = e / (SSD_BWD_TOL * scale)
+            require(ratios[key] <= 1.0, f"{name}: {key} err {e:.3g} over "
+                                        f"{SSD_BWD_TOL} x {scale:.3g}")
+    return errs, ratios
+
+
+def check_ssd_bwd(torch, timer, gen, name, B, T, H, P, N, chunk, h0, dtype,
+                  headline) -> dict:
+    """The whole backward (``ssd_chunk_scan_bwd``, the four reversed passes
+    in one call) against its plain version on the card from the same saved
+    forward and against the plain version in f64 from an f64 forward; two
+    runs bit for bit."""
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan_bwd,
+                                               ssd_chunk_scan_bwd_plain,
+                                               ssd_chunk_scan_train)
+
+    x, dt, A, Bm, Cm, h = ssd_inputs(torch, gen, B, T, H, P, N, h0, dtype)
+    dy = _rand(torch, gen, (B, T, H, P), torch.float32)
+    dhT = _rand(torch, gen, (B, H, P, N), torch.float32) if h0 else None
+    _, _, saved = ssd_chunk_scan_train(x, dt, A, Bm, Cm, h, chunk)
+    run = lambda: ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, saved, dy, dhT, chunk,
+                                     want_dh0=h0)
+    plain = lambda: ssd_chunk_scan_bwd_plain(x, dt, A, Bm, Cm, saved, dy,
+                                             dhT, chunk)
+    got = run()
+    torch.cuda.synchronize()
+    again = run()
+    require(all(a is None or torch.equal(a, b) for a, b in zip(got, again)),
+            f"{name}: two runs of the backward differ")
+    d64 = [t.double() if t is not None else None
+           for t in (x, dt, A, Bm, Cm, h, dy, dhT)]
+    s64 = ssd_saved_plain(torch, *d64[:6], chunk)
+    f64 = ssd_chunk_scan_bwd_plain(*d64[:5], s64, d64[6], d64[7], chunk)
+    # without h0 there is no dh0 to compare
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")[:6 if h0 else 5]
+    errs, ratios = ssd_bwd_compare(torch, name, got,
+                                   {"plain": plain(), "f64": f64}, names)
+    flops = sum(ssd_bwd_work(B, T, H, P, N, chunk).values())
+    n_bytes = ssd_bwd_bytes(B, T, H, P, N, chunk, x.element_size(),
+                            h0)["whole"]
+    bound_ms, bound_by = bound(n_bytes, flops, "float32")
+    return {"case": name, "kernel": "ssd_chunk_bwd",
+            "shape": {"B": B, "T": T, "H": H, "P": P, "N": N, "chunk": chunk,
+                      "h0": h0},
+            "dtype": str(dtype).replace("torch.", ""), "headline": headline,
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.endswith("vs plain")),
+            "errors": errs, "err_over_tol": max(ratios.values()),
+            "ratios": ratios, "tol_rel": SSD_BWD_TOL, "bit_identical": True,
+            "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
+            "ms": timer.ms(run), "plain_ms": timer.ms(plain),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_ssd_bwd_passes(torch, timer, gen) -> list[dict]:
+    """Each reversed pass alone at the Zamba2 train shape (B=4, T=512, with
+    h0 and dhT), the kernel and its plain version given the same inputs
+    (the plain chain's outputs of the pass before), held against the plain
+    pass and the same pass in f64; two runs bit for bit."""
+    import repro_torch.kernels.ssd_chunk  # noqa: F401
+    K = sys.modules["repro_torch.kernels.ssd_chunk"]
+
+    B, T, H, P, N, chunk = 4, 512, 64, 64, 64, 128
+    x, dt, A, Bm, Cm, h = ssd_inputs(torch, gen, B, T, H, P, N, True,
+                                     torch.float32)
+    dy = _rand(torch, gen, (B, T, H, P), torch.float32)
+    dhT = _rand(torch, gen, (B, H, P, N), torch.float32)
+    G, Hin, ce = ssd_saved_plain(torch, x, dt, A, Bm, Cm, h, chunk)
+    o = K.ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk)
+    dx_o, dGh, dCh, dHin, dcum_o, ddt_o = o
+    dS, dce, _ = K.ssd_state_pass_bwd_plain(Hin, ce, dHin, dhT)
+    _, dBh, _, dA_part = K.ssd_states_bwd_plain(x, dt, A, Bm, dS, dcum_o,
+                                                ddt_o, dce, dx_o, chunk)
+    d = lambda *ts: [t.double() for t in ts]
+    passes = {
+        "out_bwd": ((x, dt, A, Cm, G, Hin, dy, chunk), K.ssd_out_bwd,
+                    K.ssd_out_bwd_plain,
+                    ("dx_o", "dGh", "dCh", "dHin", "dcum_o", "ddt_o")),
+        "state_pass_bwd": ((Hin, ce, dHin, dhT), K.ssd_state_pass_bwd,
+                           K.ssd_state_pass_bwd_plain,
+                           ("dS", "dce", "dh0")),
+        "states_bwd": ((x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o, chunk),
+                       K.ssd_states_bwd, K.ssd_states_bwd_plain,
+                       ("dx", "dBh", "ddt", "dA_part")),
+        "cb_bwd": ((Bm, Cm, dGh, dBh, dCh, dA_part, chunk), K.ssd_cb_bwd,
+                   K.ssd_cb_bwd_plain, ("dB", "dC", "dA")),
+    }
+    work = ssd_bwd_work(B, T, H, P, N, chunk)
+    nbytes = ssd_bwd_bytes(B, T, H, P, N, chunk, 4, True)
+    plan = K.ssd_bwd_plan(B, T, H, P, N, chunk)
+    out = []
+    for name, (args, kern, plain, names) in passes.items():
+        run = lambda: kern(*args)
+        got = run()
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, run())),
+                f"SSD backward pass {name}: two runs differ")
+        a64 = [t.double() if isinstance(t, torch.Tensor) else t for t in args]
+        refs = {"plain": plain(*args), "f64": plain(*a64)}
+        errs, ratios = ssd_bwd_compare(torch, f"SSD backward pass {name}",
+                                       got, refs, names)
+        bound_ms, bound_by = bound(nbytes[name], work[name], "float32")
+        p = plan[name]
+        out.append({
+            "case": f"zamba2 train B=4 T=512, h0: pass {name}",
+            "kernel": f"ssd_chunk.{name}", "dtype": "float32",
+            "headline": True,
+            "plan": {"grid": list(p.grid), "threads": p.threads,
+                     "smem": p.smem, "blocks_per_sm": p.blocks_per_sm},
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.endswith("vs plain")),
+            "errors": errs, "err_over_tol": max(ratios.values()),
+            "ratios": ratios, "tol_rel": SSD_BWD_TOL,
+            "gflop": work[name] / 1e9, "mbytes": nbytes[name] / 1e6,
+            "ms": timer.ms(run), "plain_ms": timer.ms(lambda: plain(*args)),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+    return out
+
+
 def phase_kernels(torch) -> list[dict]:
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1053,6 +1295,9 @@ def phase_kernels(torch) -> list[dict]:
     cases += [check_conv(torch, timer, gen, *c) for c in conv_cases(torch)]
     cases += [check_ssd(torch, timer, gen, *c) for c in ssd_cases(torch)]
     cases += check_ssd_passes(torch, timer, gen)
+    cases += [check_ssd_bwd(torch, timer, gen, *c)
+              for c in ssd_bwd_cases(torch)]
+    cases += check_ssd_bwd_passes(torch, timer, gen)
     folds = [check_conv_fold(torch, gen, f"{n}: 10 pieces folded vs one by "
                              "one", (10,) + xs, ws)
              for n, xs, ws in (("conv4_2", (512, 30, 6), (512, 512, 3, 3)),
@@ -2856,7 +3101,8 @@ def serving_gemma(torch) -> tuple:
             "gemma-2b at full width")
     t0 = time.perf_counter()
     params = M.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(SEED + 30))
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 30),
+        device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     wl = gemma_workload(cfg.vocab)
@@ -3247,12 +3493,14 @@ def family_gemm_cases(torch, G106, D66) -> list:
     return cases
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, top: int = 4, groups: dict | None = None):
     """``fn()`` under torch.profiler, device activity only, read from the
     profiler's raw records (a run launches ~10^5 kernels, and turning every
     record into a Python event costs ~30x this walk): (fn's result, wall
     s, {wall_ms, device_ms, idle_share, top}, device instances by kernel
-    name)."""
+    name).  ``groups`` ({group: name parts}) adds each group's device ms
+    (a kernel in the first group whose part its name holds; the rest
+    under "other")."""
     import collections
 
     from torch.autograd import DeviceType
@@ -3271,10 +3519,18 @@ def device_profile(torch, fn):
             calls[ev.name()] += 1
     require(bool(ns), "no device kernel rows in the profile")
     device_ms = sum(ns.values()) / 1e6
-    return out, wall, {"wall_ms": wall * 1e3, "device_ms": device_ms,
-                       "idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
-                       "top": [{"name": k[:60], "ms": t / 1e6}
-                               for k, t in ns.most_common(4)]}, calls
+    stats = {"wall_ms": wall * 1e3, "device_ms": device_ms,
+             "idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
+             "top": [{"name": k[:60], "ms": t / 1e6}
+                     for k, t in ns.most_common(top)]}
+    if groups:
+        by = dict.fromkeys(list(groups) + ["other"], 0.0)
+        for name, t in ns.items():
+            g = next((g for g, parts in groups.items()
+                      if any(p in name for p in parts)), "other")
+            by[g] += t / 1e6
+        stats["groups_ms"] = by
+    return out, wall, stats, calls
 
 
 def instances(calls, part: str) -> int:
@@ -3917,6 +4173,392 @@ def phase_families(torch) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training — the SSD backward kernel under autograd
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-3  # kernel gradient vs the f64 one, relative to its max
+ALL_SSD_PASSES = ("cb", "states", "state_pass", "out", "out_bwd",
+                  "state_pass_bwd", "states_bwd", "cb_bwd")
+
+
+def zero_train_counters() -> None:
+    """Every launch counter, the SSD backward's too (only the train
+    phase's paths run it)."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan_bwd
+
+    zero_launch_counters()
+    ssd_chunk_scan_bwd.launches = 0
+    ssd_chunk_scan_bwd.pass_launches = dict.fromkeys(
+        ssd_chunk_scan_bwd.pass_launches, 0)
+
+
+def read_train_counters() -> dict:
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan_bwd
+
+    counts = read_launch_counters()
+    counts["ssd_chunk_bwd"] = ssd_chunk_scan_bwd.launches
+    counts.update({f"ssd_chunk.{k}": n
+                   for k, n in ssd_chunk_scan_bwd.pass_launches.items()})
+    return counts
+
+
+def leaf_names(tree) -> list[str]:
+    """Each leaf's name (its last key), in ``tree_leaves`` order."""
+    from repro_torch.checkpoint.store import _flatten
+
+    return [k.split("/")[-1].strip("[]'.") for k, _ in _flatten(tree)]
+
+
+def plain_ssd_chunked(x, dt, A, Bm, Cm, chunk=128, init_state=None):
+    """``models.ssm.ssd_chunked`` by the SSD passes' plain versions in f64,
+    differentiated by autograd: the oracle's SSD."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan_passes_plain
+
+    h0 = None if init_state is None else init_state.double()
+    return ssd_chunk_scan_passes_plain(x.double(), dt.double(), A.double(),
+                                       Bm.double(), Cm.double(), h0,
+                                       min(chunk, x.shape[1]))
+
+
+def train_grad(torch) -> tuple:
+    """(a) Zamba2-1.2B at published widths, depth 6 (the shared block
+    after layer 5), f32, B=2 T=512 from ``TokenStream``: one gradient on
+    the kernels against the f64 gradient of the plain versions, leaf by
+    leaf, and no leaf zero.  Returns (launches, params, grads)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import cross_entropy
+    from repro_torch.models import model as M
+    from repro_torch.optim import tree_leaves, tree_map
+
+    ssm = sys.modules["repro_torch.models.ssm"]
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=6,
+                              dtype=torch.float32)
+    require(cfg.has_shared_attn(5) and cfg.d_model == 2048,
+            "depth 6 at published widths holds the shared block")
+    params = M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 30),
+        device="cuda")
+    tokens, labels = next(iter(TokenStream(vocab=cfg.vocab, batch=2,
+                                           seq=512, seed=SEED)))
+    tok = torch.from_numpy(tokens).cuda()
+    lab = torch.from_numpy(labels).cuda()
+    leaves = tree_leaves(params)
+    names = leaf_names(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    zero_train_counters()
+    t0 = time.perf_counter()
+    loss = cross_entropy(M.forward(cfg, params, tok), lab)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    counts = read_train_counters()
+    for p in leaves:
+        p.requires_grad_(False)
+    require(counts["ssd_chunk"] == 6 and counts["ssd_chunk_bwd"] == 6
+            and all(counts[f"ssd_chunk.{p}"] == 6 for p in ALL_SSD_PASSES),
+            f"(a): 6 SSD forward and 6 backward launches, got {counts}")
+    require(counts["skinny_gemm"] == 0, f"(a): uncoded, got {counts}")
+    # the oracle: parameters and products in f64, the SSD by its plain
+    # passes in f64 (the model's own f32 steps, as in the norms, stay f32)
+    p64 = tree_map(lambda p: p.detach().double().requires_grad_(True),
+                   params)
+    l64 = tree_leaves(p64)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    kernel_ssd = ssm.ssd_chunked
+    ssm.ssd_chunked = plain_ssd_chunked
+    try:
+        t0 = time.perf_counter()
+        loss64 = cross_entropy(M.forward(cfg64, p64, tok), lab)
+        g64 = torch.autograd.grad(loss64, l64)
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+    finally:
+        ssm.ssd_chunked = kernel_ssd
+    rel = {}
+    for n, g, r in zip(names, grads, g64):
+        require(bool(torch.isfinite(g).all()), f"(a): {n} non-finite")
+        require(float(g.abs().max()) > 0.0, f"(a): the gradient of {n} is "
+                                            "zero (a dropped backward)")
+        e = float((g.double() - r).abs().max() / r.abs().max())
+        rel[n] = max(rel.get(n, 0.0), e)
+    worst = max(rel.values())
+    require(worst <= TRAIN_TOL, f"(a): worst leaf {max(rel, key=rel.get)} "
+                                f"rel err {worst:.3g} > {TRAIN_TOL}")
+    loss, loss64 = float(loss.detach()), float(loss64.detach())
+    loss_err = abs(loss - loss64) / abs(loss64)
+    require(loss_err <= TRAIN_TOL, f"(a): loss {loss} vs f64 {loss64}")
+    del p64, l64, g64
+    emit({"phase": "train", "part": "a",
+          "what": "Zamba2-1.2B at published widths, depth 6 (the shared "
+                  "attention block after layer 5), f32, B=2 T=512 "
+                  "TokenStream: one gradient on the kernels against the f64 "
+                  "gradient of the plain versions",
+          "loss": loss, "loss_f64": loss64,
+          "loss_rel_err": loss_err, "worst_rel_err": worst,
+          "tol_rel": TRAIN_TOL, "rel_err_by_leaf": rel, "launches": counts,
+          "leaves": len(leaves), "grad_s": grad_s, "oracle_s": oracle_s,
+          "seconds": time.perf_counter() - t_start})
+    return counts, params, grads
+
+
+def train_checkpoint(torch, params, grads) -> None:
+    """(c) (a)'s parameters and AdamW state after one step, and a bf16
+    leaf, saved and loaded back to the card bit for bit."""
+    import shutil
+
+    from repro_torch.checkpoint import (latest_step, load_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.optim import (adamw_init, adamw_update, tree_leaves,
+                                   tree_map)
+
+    t_start = time.perf_counter()
+    by_leaf = dict(zip(map(id, tree_leaves(params)), grads))
+    params, opt = adamw_update(params,
+                               tree_map(lambda p: by_leaf[id(p)], params),
+                               adamw_init(params), 3e-4)
+    tree = {"params": params, "opt": opt,
+            "embed_bf16": params["embed"].to(torch.bfloat16)}
+    d = os.path.join(ROOT, "build", "chip_smoke_checkpoint")
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, 1, tree)
+        save_s = time.perf_counter() - t0
+        npz = os.path.getsize(os.path.join(path, "arrays.npz"))
+        t0 = time.perf_counter()
+        back = load_checkpoint(d, 1, tree)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        require(latest_step(d) == 1, "(c): latest_step")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    pairs = list(zip(_flatten(tree), _flatten(back)))
+    for (k, a), (k2, b) in pairs:
+        require(k == k2 and b.device == a.device and b.dtype == a.dtype
+                and torch.equal(a, b), f"(c): {k} does not come back bit "
+                                       "for bit")
+    emit({"phase": "train", "part": "c",
+          "what": "(a)'s params and AdamW state after one step, and a bf16 "
+                  "copy of the embedding, saved and loaded back to the card",
+          "leaves": len(pairs), "bit_identical": True, "npz_bytes": npz,
+          "bf16_leaves": sum(a.dtype == torch.bfloat16 for (_, a), _ in pairs),
+          "save_s": save_s, "load_s": load_s,
+          "seconds": time.perf_counter() - t_start})
+
+
+TRAIN_STEPS, TRAIN_B, TRAIN_T = 10, 4, 512
+
+
+def train_run(torch) -> dict:
+    """(b) ``train_loop`` on Zamba2-1.2B at published widths and depth,
+    f32, B=4 T=512, 10 steps, base lr 3e-4: the loss falls, 38 SSD forward
+    and 38 backward launches a step, no skinny GEMM; then s/step, tokens/s
+    and one profiled step's device time.  Returns the run's launches."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), dtype=torch.float32)
+    require((cfg.n_layers, cfg.d_model) == (38, 2048), "full Zamba2-1.2B")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    zero_train_counters()
+    t0 = time.perf_counter()
+    params, losses = train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_B,
+                                seq=TRAIN_T, base_lr=3e-4, log_every=1,
+                                seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = read_train_counters()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = M.param_count(params)
+    require(all(math.isfinite(v) for v in losses), f"(b): losses {losses}")
+    require(losses[-1] < losses[0], f"(b): the loss did not fall: {losses}")
+    per_step = 38 * TRAIN_STEPS
+    require(counts["ssd_chunk"] == per_step
+            and counts["ssd_chunk_bwd"] == per_step
+            and all(counts[f"ssd_chunk.{p}"] == per_step
+                    for p in ALL_SSD_PASSES),
+            f"(b): 38 SSD forward and 38 backward launches a step, got "
+            f"{counts}")
+    require(counts["skinny_gemm"] == 0 and counts["piece_gemm_stacked"] == 0
+            and counts["conv2d"] == 0, f"(b): training is uncoded: {counts}")
+    # s/step and one profiled step, on the trained params with their own
+    # AdamW state (the loop's is gone with it)
+    step_fn = make_train_step(cfg, base_lr=3e-4, total_steps=TRAIN_STEPS)
+    opt = adamw_init(params)
+    stream = iter(TokenStream(vocab=cfg.vocab, batch=TRAIN_B, seq=TRAIN_T,
+                              seed=SEED + 1))
+
+    def one_step(i):
+        tokens, labels = next(stream)
+        batch = {"tokens": torch.from_numpy(tokens).cuda(),
+                 "labels": torch.from_numpy(labels).cuda()}
+        nonlocal params, opt
+        params, opt, loss = step_fn(params, opt, batch, i)
+        return float(loss)
+
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = sorted(times)[1]
+    _, _, prof, calls = device_profile(
+        torch, lambda: one_step(3), top=8,
+        groups={"ssd_bwd": ("ssd_out_bwd", "ssd_state_pass_bwd",
+                            "ssd_states_bwd", "ssd_cb_bwd"),
+                "ssd_fwd": ("ssd_cb_kernel", "ssd_states_kernel",
+                            "ssd_state_pass_kernel", "ssd_out_kernel"),
+                "gemm": ("gemm", "Kernel2", "cutlass", "xmma")})
+    bwd_rows = {k: instances(calls, k) for k in
+                ("ssd_out_bwd", "ssd_state_pass_bwd", "ssd_states_bwd",
+                 "ssd_cb_bwd")}
+    require(all(n == 38 for n in bwd_rows.values()),
+            f"(b): the profiled step ran {bwd_rows} SSD backward kernels")
+    emit({"phase": "train", "part": "b",
+          "what": "train_loop, Zamba2-1.2B at published widths and depth "
+                  "(38 Mamba2 layers, the shared block after every 6th), "
+                  "f32, B=4 T=512 TokenStream, 10 steps, base lr 3e-4",
+          "params": n_params, "losses": losses, "loop_s": loop_s,
+          "step_s": step_s, "step_s_all": times,
+          "tokens_per_s": TRAIN_B * TRAIN_T / step_s,
+          "profiled_step": prof, "peak_bytes": peak,
+          "ssd_bwd_instances": bwd_rows, "launches": counts,
+          "seconds": time.perf_counter() - t_start})
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+FLASH_CASES = (  # T, block, window
+    (512, 512, 0), (500, 128, 200))
+FLASH_TOL = 1e-4
+
+
+def train_flash(torch) -> None:
+    """(d) The flash backward on the card: one gradient with the custom
+    backward at gemma-2b's attention widths (H 8, K 1, P 256), against
+    autograd through ``blockwise_causal_attention`` (the same forward),
+    in one block of 512 and in blocks of 128 with a ragged T and a
+    window; then one gradient of gemma-2b at published widths, depth 1,
+    B 2 x T 512, with ``flash_vjp=True`` against ``flash_vjp=False``, leaf
+    by leaf."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import cross_entropy
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import (blockwise_causal_attention,
+                                              flash_causal_attention)
+    from repro_torch.optim import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    rows = []
+    for T, blk, window in FLASH_CASES:
+        q = _rand(torch, gen, (2, T, 8, 256), torch.float32)
+        k = _rand(torch, gen, (2, T, 1, 256), torch.float32)
+        v = _rand(torch, gen, (2, T, 1, 256), torch.float32)
+        do = _rand(torch, gen, (2, T, 8, 256), torch.float32)
+
+        def grads(fn):
+            ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*ins)
+            g = torch.autograd.grad(out, ins, do)
+            torch.cuda.synchronize()
+            return out.detach(), g, time.perf_counter() - t0
+
+        out, g, flash_s = grads(lambda a, b, c: flash_causal_attention(
+            a, b, c, window, blk, blk))
+        ref, r, block_s = grads(lambda a, b, c: blockwise_causal_attention(
+            a, b, c, window=window, block_q=blk, block_k=blk))
+        require(torch.equal(out, ref), f"(d) T={T}: the forwards differ")
+        rel = {n: float((a - b).abs().max() / b.abs().max())
+               for n, a, b in zip(("dq", "dk", "dv"), g, r)}
+        require(max(rel.values()) <= FLASH_TOL,
+                f"(d) T={T} block {blk} window {window}: {rel}")
+        rows.append({"T": T, "block": blk, "window": window, "rel_err": rel,
+                     "flash_s": flash_s, "blockwise_autograd_s": block_s})
+    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=1,
+                              dtype=torch.float32)
+    require((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (8, 1, 256),
+            "(d): gemma-2b's attention widths")
+    params = M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 32),
+        device="cuda")
+    tokens, labels = next(iter(TokenStream(vocab=cfg.vocab, batch=2,
+                                           seq=512, seed=SEED + 2)))
+    tok = torch.from_numpy(tokens).cuda()
+    lab = torch.from_numpy(labels).cuda()
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    model = {}
+    for flash in (True, False):
+        c = dataclasses.replace(cfg, flash_vjp=flash)
+        loss = cross_entropy(M.forward(c, params, tok), lab)
+        model[flash] = (float(loss.detach()),
+                        torch.autograd.grad(loss, leaves))
+    require(model[True][0] == model[False][0],
+            f"(d) gemma-2b: the losses differ: {model[True][0]}, "
+            f"{model[False][0]}")
+    model_rel = {}
+    for n, a, b in zip(leaf_names(params), model[True][1], model[False][1]):
+        require(float(b.abs().max()) > 0.0, f"(d) gemma-2b: {n} zero")
+        model_rel[n] = float((a - b).abs().max() / b.abs().max())
+    require(max(model_rel.values()) <= FLASH_TOL,
+            f"(d) gemma-2b, flash_vjp: {model_rel}")
+    del params, leaves, model
+    emit({"phase": "train", "part": "d",
+          "what": "flash_causal_attention's backward (_flash_bwd) at "
+                  "gemma-2b's attention widths (H 8, K 1, P 256), f32, B=2, "
+                  "against autograd through blockwise_causal_attention; "
+                  "gemma-2b at published widths, depth 1, B=2 T=512, one "
+                  "gradient with flash_vjp=True against flash_vjp=False",
+          "tol_rel": FLASH_TOL, "cases": rows,
+          "gemma_2b_depth1_flash_vjp_rel_err_by_leaf": model_rel})
+
+
+def phase_train(torch) -> dict:
+    """Parts (a) to (d), one JSON line each; returns the counted paths'
+    launches."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {}
+    counts["train_grad"], params, grads = train_grad(torch)
+    train_checkpoint(torch, params, grads)
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["train"] = train_run(torch)
+    train_flash(torch)
+    return counts
+
 
 # ---------------------------------------------------------------------------
 
@@ -3940,6 +4582,15 @@ KERNEL_META["piece_gemm_stacked"] = dict(KERNEL_META["skinny_gemm"])
 KERNEL_META.update({
     f"ssd_chunk.{p}": dict(KERNEL_META["ssd_chunk"])
     for p in ("cb", "states", "state_pass", "out")})
+# its backward (the reference differentiates the plain jnp ssd_chunked at
+# src/repro/models/ssm.py:85; it has no backward kernel), whole and by pass
+KERNEL_META["ssd_chunk_bwd"] = {
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+    "replaces": "src/repro/kernels/ssd_scan.py:66"}
+KERNEL_META.update({
+    f"ssd_chunk.{p}": dict(KERNEL_META["ssd_chunk_bwd"])
+    for p in ("out_bwd", "state_pass_bwd", "states_bwd", "cb_bwd")})
 
 
 def kernels_line(cases: list[dict], by_path: dict) -> dict:
@@ -4041,6 +4692,9 @@ def main() -> int:
     if "families" in phases:
         zamba2 = None  # the earlier phases' model: released first
         by_path["families"] = timed("families", phase_families, torch)
+    if "train" in phases:
+        zamba2 = None
+        by_path.update(timed("train", phase_train, torch))
 
     if set(phases) != set(ALL_PHASES):
         print(f"partial run ({phases}): no result line", file=sys.stderr)

@@ -13,6 +13,10 @@ packages on the same numpy input.
   leading layer axis: an MoE layer's experts arrive as (L, E, D, F)); the
   port keeps a per-layer list, so a stacked ``layers`` is unstacked on
   the way in.
+* AdamW state (``optim.AdamWState``): ``step`` and the moments ``mu``,
+  ``nu``, each a tree shaped like the parameters (stacked layers unstacked
+  as the parameters are), so that both packages can take one optimiser
+  step from the same state.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import torch
 from ._device import resolve_device
 
 __all__ = ["cnn_params_from_numpy", "cnn_params_to_numpy",
-           "model_params_from_numpy", "model_params_to_numpy"]
+           "model_params_from_numpy", "model_params_to_numpy",
+           "adamw_state_from_numpy", "adamw_state_to_numpy"]
 
 # numpy dtype names (bfloat16 arrives as ml_dtypes' type) -> torch dtypes
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -140,3 +145,31 @@ def model_params_to_numpy(params: Mapping) -> dict:
         return t.numpy()
 
     return _tree_map(arr, params)
+
+
+def adamw_state_from_numpy(state, *, device: str | torch.device = "cuda"):
+    """A reference ``AdamWState`` (numpy or jax leaves) -> the port's, on
+    ``device``: the moments in f32, in the port's tree (``layers`` a
+    per-layer list), the step an int32 0-d tensor."""
+    from .optim import AdamWState
+
+    dev = resolve_device(device)
+
+    def moments(tree):
+        tree = dict(tree)
+        if isinstance(tree.get("layers"), Mapping):
+            tree["layers"] = _unstack(tree["layers"])
+        return _tree_map(lambda a: torch.from_numpy(
+            np.array(a, dtype=np.float32)).to(dev), tree)
+
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step=step, mu=moments(state.mu), nu=moments(state.nu))
+
+
+def adamw_state_to_numpy(state) -> dict:
+    """The port's ``AdamWState`` -> ``{"step": int, "mu": tree, "nu":
+    tree}`` of f32 numpy arrays in the port's tree."""
+    arr = lambda t: t.detach().to("cpu", torch.float32).numpy()
+    return {"step": int(state.step), "mu": _tree_map(arr, state.mu),
+            "nu": _tree_map(arr, state.nu)}

@@ -42,6 +42,13 @@ B; :func:`ssd_chunk_scan_plain` runs it chunk by chunk with the reference
 wrapper its own plain version.  On a CUDA tensor they launch the kernels or
 raise.  :func:`ssd_chunk_scan_passes_plain` composes the passes' plain
 versions.
+
+The backward (``csrc/ssd_chunk_bwd.cu``, :func:`ssd_chunk_scan_bwd`) runs
+the four passes in reverse, each a kernel with its plain version here
+(``ssd_out_bwd``, ``ssd_state_pass_bwd``, ``ssd_states_bwd``,
+``ssd_cb_bwd``), from what :func:`ssd_chunk_scan_train` keeps of the
+forward: G, the entering states Hin and cum_end.  The reference has no
+backward kernel; its training differentiates the plain jnp scan.
 """
 from __future__ import annotations
 
@@ -55,12 +62,17 @@ import torch
 from . import _build
 from ._tiles import SMEM_LIMIT
 
-__all__ = ["ssd_chunk", "ssd_chunk_scan", "ssd_chunk_plain",
+__all__ = ["ssd_chunk", "ssd_chunk_scan", "ssd_chunk_scan_train",
+           "ssd_chunk_plain",
            "ssd_chunk_scan_plain", "ssd_cb", "ssd_states", "ssd_state_pass",
            "ssd_out", "ssd_cb_plain", "ssd_states_plain",
            "ssd_state_pass_plain", "ssd_out_plain",
            "ssd_chunk_scan_passes_plain", "ssd_plan", "PassPlan", "PASSES",
-           "LMAX", "PMAX", "NMAX"]
+           "LMAX", "PMAX", "NMAX", "ssd_chunk_scan_bwd",
+           "ssd_chunk_scan_bwd_plain", "ssd_out_bwd", "ssd_state_pass_bwd",
+           "ssd_states_bwd", "ssd_cb_bwd", "ssd_out_bwd_plain",
+           "ssd_state_pass_bwd_plain", "ssd_states_bwd_plain",
+           "ssd_cb_bwd_plain", "ssd_bwd_plan", "BWD_PASSES"]
 
 LMAX, PMAX, NMAX = 128, 64, 128  # the kernels' chunk, head-dim, state limits
 PASSES = ("cb", "states", "state_pass", "out")
@@ -399,8 +411,9 @@ def _run_out(seq: _Seq, G, Hin):
     return y.to(seq.out_dtype)
 
 
-def _launch(x, dt, A, Bm, Cm, h0, chunk: int):
-    """The four passes on the card: one ``ssd_chunk`` launch."""
+def _launch(x, dt, A, Bm, Cm, h0, chunk: int, keep: bool = False):
+    """The four passes on the card: one ``ssd_chunk`` launch.  With
+    ``keep`` it also returns what the backward reads: (G, Hin, cum_end)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     with torch.cuda.device(x.device):
@@ -411,7 +424,7 @@ def _launch(x, dt, A, Bm, Cm, h0, chunk: int):
         y = _run_out(seq, G, Hin)
     with _count_lock:
         ssd_chunk.launches += 1
-    return y, hT
+    return (y, hT, (G, Hin, cum_end)) if keep else (y, hT)
 
 
 # ---------------------------------------------------------------------------
@@ -473,6 +486,23 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, h0=None, chunk: int = 128):
     if x.device.type == "cpu":
         return ssd_chunk_scan_plain(x, dt, A, Bm, Cm, h0, chunk)
     return _launch(x, dt, A, Bm, Cm, h0, chunk)
+
+
+def ssd_chunk_scan_train(x, dt, A, Bm, Cm, h0=None, chunk: int = 128):
+    """:func:`ssd_chunk_scan` that also returns what the backward reads:
+    (y, final state, (G, Hin, cum_end)) -- the causal C B^T of each chunk,
+    the states entering each chunk and the chunks' total decays, all f32.
+    One ``ssd_chunk`` launch on a CUDA tensor; on a CPU tensor the passes'
+    plain versions."""
+    _check(x, dt, A, Bm, Cm, h0)
+    chunk = _chunk_arg(chunk)
+    if x.device.type == "cpu":
+        G = ssd_cb_plain(Bm, Cm, chunk)
+        S, cum_end = ssd_states_plain(x, dt, A, Bm, chunk)
+        Hin, hT = ssd_state_pass_plain(S, cum_end, h0)
+        y = ssd_out_plain(x, dt, A, Cm, G, Hin, chunk)
+        return y, hT, (G, Hin, cum_end)
+    return _launch(x, dt, A, Bm, Cm, h0, chunk, keep=True)
 
 
 def _pass_seq(x, dt, A, Bm, Cm, chunk, *more):
@@ -553,3 +583,362 @@ ssd_chunk.launches = 0  # ssd_chunk / ssd_chunk_scan calls run on the card
 # kernel launches of each pass (every call above launches all four; the pass
 # wrappers launch one); plain-version calls count nowhere
 ssd_chunk.pass_launches = dict.fromkeys(PASSES, 0)
+
+
+# ---------------------------------------------------------------------------
+# the backward: plain versions
+# ---------------------------------------------------------------------------
+# The reverse of the four passes, for dy (B, T, H, P) and the final state's
+# gradient dhT (B, H, P, N) or None.  Per (batch, chunk, head), with E[l, s]
+# = exp(cum_l - cum_s) for s <= l (0 above the diagonal), M = G o E o dt_s
+# the intra term's weights and dM[l, s] = sum_p dy[l, p] x[s, p]:
+#
+#   out_bwd         dx_o = M^T dy; R = dM o G o E, Z = R o dt_s;
+#                   dGh = dM o E o dt_s (one head's share of dG);
+#                   ddt_o[s] = sum_l R[l, s];
+#                   dCh = diag(exp(cum)) dy Hin, dHin = (diag(exp(cum)) dy)^T C;
+#                   dcum_o[l] = sum_s Z[l, s] - sum_l' Z[l', l]
+#                               + sum_n C[l, n] dCh[l, n]
+#                   (the last term is exp(cum_l) dy_l . (C Hin^T)_l)
+#   state_pass_bwd  from the last chunk to the first: dS[c] = g,
+#                   dce[c] = exp(cum_end[c]) sum(g o Hin[c]),
+#                   g = dHin[c] + exp(cum_end[c]) g, from g = dhT; dh0 = g
+#   states_bwd      with w_s = exp(cum_end - cum_s) dt_s, V = x dS (L x N):
+#                   dx = dx_o + w o (B dS^T), dBh = w o V, dw_s = B_s . V_s;
+#                   ddt = ddt_o + dw exp(cum_end - cum) + A rcumsum(dcum),
+#                   dcum = dcum_o - dw w (+ dce + sum dw w on the last row),
+#                   dA_part = sum_s rcumsum(dcum)_s dt_s
+#   cb_bwd          dG = sum_h dGh; dC = sum_h dCh + dG B; dB = sum_h dBh
+#                   + dG^T C; dA = sum over batch and chunks of dA_part
+#
+# rcumsum is the reverse running sum inside the chunk (cum is the running
+# sum of dA = dt A).  Rows past T read as zeros and take no gradient.
+
+def _heads_first(t):
+    """(B, c, L, H) -> (B, c, H, L)."""
+    return t.permute(0, 1, 3, 2)
+
+
+def ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk: int):
+    """Pass 4 reversed: (dx_o (B, T, H, P), dGh (B, c, H, L, L), dCh
+    (B, c, H, L, N), dHin (B, c, H, P, N), dcum_o (B, c, H, L), ddt_o
+    (B, c, H, L)), f32 (f64 for f64 input)."""
+    T = x.shape[1]
+    L = chunk
+    xc, dyc, dtc, Cc = (_chunked(t, L) for t in (x, dy, dt, Cm))
+    cum = _cum(dt, A, L)                                        # (B, c, L, H)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B, c, l, s, H)
+    causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    E = torch.exp(seg.masked_fill(~causal[None, None, :, :, None],
+                                  float("-inf"))).permute(0, 1, 4, 2, 3)
+    dts = _heads_first(dtc)[:, :, :, None, :]                   # dt_s
+    Gw = _wide(G)[:, :, None]
+    dM = torch.einsum("bclhp,bcshp->bchls", dyc, xc)
+    R = dM * Gw * E
+    Z = R * dts
+    dGh = dM * E * dts
+    M = Gw * E * dts
+    dx_o = torch.einsum("bchls,bclhp->bcshp", M, dyc)
+    ddt_o = R.sum(-2)
+    ecum = torch.exp(cum)                                       # (B, c, L, H)
+    dye = dyc * ecum[..., None]
+    dCh = torch.einsum("bclhp,bchpn->bchln", dye, _wide(Hin))
+    dcum_o = Z.sum(-1) - Z.sum(-2) + (Cc[:, :, None] * dCh).sum(-1)
+    dHin = torch.einsum("bclhp,bcln->bchpn", dye, Cc)
+    Bsz, c, _, H, P = xc.shape
+    return (dx_o.reshape(Bsz, c * L, H, P)[:, :T], dGh, dCh, dHin, dcum_o,
+            ddt_o)
+
+
+def ssd_state_pass_bwd_plain(Hin, cum_end, dHin, dhT=None):
+    """Pass 3 reversed, the one walk over the chunks (last to first):
+    (dS (B, c, H, P, N), dce (B, c, H) the gradient of each chunk's total
+    decay through the carried state, dh0 (B, H, P, N))."""
+    Hin, dHin = _wide(Hin), _wide(dHin)
+    a = torch.exp(_wide(cum_end))
+    g = torch.zeros_like(Hin[:, 0]) if dhT is None else dhT.to(Hin.dtype)
+    dS = torch.empty_like(Hin)
+    dce = torch.empty_like(a)
+    for j in range(Hin.shape[1] - 1, -1, -1):
+        dS[:, j] = g
+        dce[:, j] = (g * Hin[:, j]).sum((-1, -2)) * a[:, j]
+        g = dHin[:, j] + g * a[:, j, :, None, None]
+    return dS, dce, g
+
+
+def ssd_states_bwd_plain(x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o,
+                         chunk: int):
+    """Pass 2 reversed, and the decay gradients gathered: (dx (B, T, H, P),
+    dBh (B, c, H, L, N), ddt (B, T, H), dA_part (B, c, H))."""
+    T = x.shape[1]
+    L = chunk
+    xc, dtc, Bc = _chunked(x, L), _chunked(dt, L), _chunked(Bm, L)
+    Bsz, c, _, H, P = xc.shape
+    cum = _cum(dt, A, L)
+    e = torch.exp(cum[:, :, -1:] - cum)                         # (B, c, L, H)
+    w = e * dtc
+    dS = _wide(dS)
+    V = torch.einsum("bcshp,bchpn->bchsn", xc, dS)
+    W = torch.einsum("bcsn,bchpn->bcshp", Bc, dS)
+    dx = (_chunked(dx_o, L) + w[..., None] * W).reshape(Bsz, c * L, H, P)
+    wh, eh = _heads_first(w), _heads_first(e)
+    dBh = wh[..., None] * V
+    dw = torch.einsum("bcsn,bchsn->bchs", Bc, V)
+    dcum = _wide(dcum_o) - dw * wh
+    last = _wide(dce) + (dw * wh).sum(-1)
+    dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last[..., None]], -1)
+    ddA = dcum.flip(-1).cumsum(-1).flip(-1)
+    ddt = _wide(ddt_o) + dw * eh + ddA * _wide(A)[None, None, :, None]
+    dA_part = (ddA * _heads_first(dtc)).sum(-1)
+    ddt = ddt.permute(0, 1, 3, 2).reshape(Bsz, c * L, H)
+    return dx[:, :T], dBh, ddt[:, :T], dA_part
+
+
+def ssd_cb_bwd_plain(Bm, Cm, dGh, dBh, dCh, dA_part, chunk: int):
+    """Pass 1 reversed, with the heads' shares summed: (dB (B, T, N), dC
+    (B, T, N), dA (H,))."""
+    T = Bm.shape[1]
+    Bc, Cc = _chunked(Bm, chunk), _chunked(Cm, chunk)
+    dG = _wide(dGh).sum(2)
+    dC = _wide(dCh).sum(2) + torch.einsum("bcls,bcsn->bcln", dG, Bc)
+    dB = _wide(dBh).sum(2) + torch.einsum("bcls,bcln->bcsn", dG, Cc)
+    Bsz, c, L, N = Bc.shape
+    return (dB.reshape(Bsz, c * L, N)[:, :T], dC.reshape(Bsz, c * L, N)[:, :T],
+            _wide(dA_part).sum((0, 1)))
+
+
+def ssd_chunk_scan_bwd_plain(x, dt, A, Bm, Cm, saved, dy, dhT=None,
+                             chunk: int = 128):
+    """The four reversed passes' plain versions composed: (dx, ddt, dA, dB,
+    dC, dh0) for the forward's ``saved`` = (G, Hin, cum_end), all f32 (f64
+    for f64 input)."""
+    G, Hin, cum_end = saved
+    dx_o, dGh, dCh, dHin, dcum_o, ddt_o = ssd_out_bwd_plain(
+        x, dt, A, Cm, G, Hin, dy, chunk)
+    dS, dce, dh0 = ssd_state_pass_bwd_plain(Hin, cum_end, dHin, dhT)
+    dx, dBh, ddt, dA_part = ssd_states_bwd_plain(
+        x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o, chunk)
+    dB, dC, dA = ssd_cb_bwd_plain(Bm, Cm, dGh, dBh, dCh, dA_part, chunk)
+    return dx, ddt, dA, dB, dC, dh0
+
+
+# ---------------------------------------------------------------------------
+# the backward: plans and kernels (csrc/ssd_chunk_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BWD_PASSES = ("out_bwd", "state_pass_bwd", "states_bwd", "cb_bwd")
+RT_BWD = 16  # cb_bwd: rows of dB or dC per block
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_bwd_plan(B: int, T: int, H: int, P: int, N: int, L: int) -> dict:
+    """How each pass of the backward is launched (grid, threads, dynamic
+    shared memory); ``csrc/ssd_chunk_bwd.cu`` holds the same formulas and
+    rejects any other."""
+    ssd_plan(B, T, H, P, N, L)  # the same limits as the forward
+    c = -(-T // L)
+    big = max(2 * L * (L + 1), (L + P) * (N + 1))
+    plans = {
+        "out_bwd": PassPlan((H, c, B), WIDE,
+                            4 * (2 * L * (P + 1) + big + 21 * LMAX)),
+        "state_pass_bwd": PassPlan((H, B, 1), WIDE, 0),
+        "states_bwd": PassPlan((H, c, B), WIDE,
+                               4 * (L * (P + 1) + 2 * L * (N + 1)
+                                    + P * (N + 1) + 6 * LMAX)),
+        "cb_bwd": PassPlan((2 * -(-L // RT_BWD), c, B), WIDE,
+                           4 * (L * (N + 1) + L * RT_BWD)),
+    }
+    assert all(p.smem <= SMEM_LIMIT for p in plans.values())
+    return plans
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("ssd_chunk_bwd")
+    if not lib.ssd_out_bwd_launch.argtypes:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_out_bwd_launch.argtypes = [P] * 14 + [I, I, P]
+        lib.ssd_state_pass_bwd_launch.argtypes = [P] * 9
+        lib.ssd_states_bwd_launch.argtypes = [P] * 13 + [I, I, P]
+        lib.ssd_cb_bwd_launch.argtypes = [P] * 10 + [I, I, P]
+        for fn in (lib.ssd_out_bwd_launch, lib.ssd_state_pass_bwd_launch,
+                   lib.ssd_states_bwd_launch, lib.ssd_cb_bwd_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _f32c(t):
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+class _Bwd:
+    """One backward's operands in the kernels' form: the forward's
+    ``_Seq`` (strided x, dt, Bm, Cm and the dims array) and its plan."""
+
+    def __init__(self, seq: _Seq):
+        self.seq = seq
+        self.plan = ssd_bwd_plan(*seq.shape)
+        self.lib = _lib_bwd()
+
+    def done(self, err: int, name: str) -> None:
+        if err != 0:
+            raise RuntimeError(
+                f"ssd_chunk_bwd {name} launch failed: CUDA error {err} (B, T, "
+                f"H, P, N, chunk = {self.seq.shape}, {self.seq.x.dtype})")
+        with _count_lock:
+            ssd_chunk_scan_bwd.pass_launches[name] += 1
+
+
+def _run_out_bwd(k: _Bwd, G, Hin, dy):
+    s = k.seq
+    Bsz, T, H, P, N, L = s.shape
+    dy = _f32c(dy)
+    dx = s.empty(Bsz, T, H, P)
+    dGh = s.empty(Bsz, s.c, H, L, L)
+    dCh = s.empty(Bsz, s.c, H, L, N)
+    dHin = s.empty(Bsz, s.c, H, P, N)
+    dcum = s.empty(Bsz, s.c, H, L)
+    ddt = s.empty(Bsz, s.c, H, L)
+    err = k.lib.ssd_out_bwd_launch(
+        s.x.data_ptr(), s.dt.data_ptr(), s.A.data_ptr(), s.Cm.data_ptr(),
+        _f32c(G).data_ptr(), _f32c(Hin).data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), dGh.data_ptr(), dCh.data_ptr(), dHin.data_ptr(),
+        dcum.data_ptr(), ddt.data_ptr(), s.dims, s.dtype,
+        k.plan["out_bwd"].smem, s.stream)
+    k.done(err, "out_bwd")
+    return dx, dGh, dCh, dHin, dcum, ddt
+
+
+def _run_state_pass_bwd(k: _Bwd, Hin, cum_end, dHin, dhT, want_dh0: bool):
+    s = k.seq
+    Bsz, T, H, P, N, L = s.shape
+    Hin, cum_end, dHin, dhT = (_f32c(t) for t in (Hin, cum_end, dHin, dhT))
+    dS = torch.empty_like(Hin)
+    dce = s.empty(Bsz, s.c, H)
+    dh0 = s.empty(Bsz, H, P, N) if want_dh0 else None
+    err = k.lib.ssd_state_pass_bwd_launch(
+        Hin.data_ptr(), cum_end.data_ptr(), dHin.data_ptr(), _ptr(dhT),
+        dS.data_ptr(), dce.data_ptr(), _ptr(dh0), s.dims, s.stream)
+    k.done(err, "state_pass_bwd")
+    return dS, dce, dh0
+
+
+def _run_states_bwd(k: _Bwd, dS, dcum_o, ddt_o, dce, dx):
+    """``dx`` (the intra term's, f32 contiguous) is completed in place."""
+    s = k.seq
+    Bsz, T, H, P, N, L = s.shape
+    dS, dcum_o, ddt_o, dce = (_f32c(t) for t in (dS, dcum_o, ddt_o, dce))
+    dBh = s.empty(Bsz, s.c, H, L, N)
+    ddt = s.empty(Bsz, T, H)
+    dA_part = s.empty(Bsz, s.c, H)
+    err = k.lib.ssd_states_bwd_launch(
+        s.x.data_ptr(), s.dt.data_ptr(), s.A.data_ptr(), s.Bm.data_ptr(),
+        dS.data_ptr(), dcum_o.data_ptr(), ddt_o.data_ptr(), dce.data_ptr(),
+        dx.data_ptr(), dBh.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
+        s.dims, s.dtype, k.plan["states_bwd"].smem, s.stream)
+    k.done(err, "states_bwd")
+    return dx, dBh, ddt, dA_part
+
+
+def _run_cb_bwd(k: _Bwd, dGh, dBh, dCh, dA_part):
+    s = k.seq
+    Bsz, T, H, P, N, L = s.shape
+    dGh, dBh, dCh, dA_part = (_f32c(t) for t in (dGh, dBh, dCh, dA_part))
+    dB = s.empty(Bsz, T, N)
+    dC = s.empty(Bsz, T, N)
+    dA = s.empty(H)
+    err = k.lib.ssd_cb_bwd_launch(
+        s.Bm.data_ptr(), s.Cm.data_ptr(), dGh.data_ptr(), dBh.data_ptr(),
+        dCh.data_ptr(), dA_part.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dA.data_ptr(), s.dims, s.dtype, k.plan["cb_bwd"].smem, s.stream)
+    k.done(err, "cb_bwd")
+    return dB, dC, dA
+
+
+def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, saved, dy, dhT=None,
+                       chunk: int = 128, want_dh0: bool = True):
+    """The gradients of :func:`ssd_chunk_scan_train` for the output's
+    gradient ``dy`` (B, T, H, P) and the final state's ``dhT`` (B, H, P, N)
+    or None: (dx (B, T, H, P), ddt (B, T, H), dA (H,), dB, dC (B, T, N),
+    dh0 (B, H, P, N) or None when not ``want_dh0``), all f32.  One
+    ``ssd_chunk_scan_bwd`` launch (the four reversed passes) on a CUDA
+    tensor, the plain versions on a CPU tensor."""
+    _check(x, dt, A, Bm, Cm, None)
+    chunk = _chunk_arg(chunk)
+    if x.device.type == "cpu":
+        out = ssd_chunk_scan_bwd_plain(x, dt, A, Bm, Cm, saved, dy, dhT,
+                                       chunk)
+        return out if want_dh0 else out[:5] + (None,)
+    if dy.device != x.device:
+        raise ValueError(f"dy on {dy.device}, x on {x.device}")
+    G, Hin, cum_end = saved
+    with torch.cuda.device(x.device):
+        k = _Bwd(_Seq(x, dt, A, Bm, Cm, chunk))
+        dx, dGh, dCh, dHin, dcum_o, ddt_o = _run_out_bwd(k, G, Hin, dy)
+        dS, dce, dh0 = _run_state_pass_bwd(k, Hin, cum_end, dHin, dhT,
+                                           want_dh0)
+        dx, dBh, ddt, dA_part = _run_states_bwd(k, dS, dcum_o, ddt_o, dce, dx)
+        dB, dC, dA = _run_cb_bwd(k, dGh, dBh, dCh, dA_part)
+    with _count_lock:
+        ssd_chunk_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, dh0
+
+
+def _bwd_pass(x, dt, A, Bm, Cm, chunk, *more) -> _Bwd:
+    return _Bwd(_pass_seq(x, dt, A, Bm, Cm, chunk, *more))
+
+
+def ssd_out_bwd(x, dt, A, Cm, G, Hin, dy, chunk: int):
+    """Pass 4 reversed alone (see :func:`ssd_out_bwd_plain`)."""
+    if x.device.type == "cpu":
+        return ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk)
+    with torch.cuda.device(x.device):
+        return _run_out_bwd(_bwd_pass(x, dt, A, Cm, Cm, chunk, G, Hin, dy),
+                            G, Hin, dy)
+
+
+def ssd_state_pass_bwd(Hin, cum_end, dHin, dhT=None):
+    """Pass 3 reversed alone (see :func:`ssd_state_pass_bwd_plain`)."""
+    if Hin.device.type == "cpu":
+        return ssd_state_pass_bwd_plain(Hin, cum_end, dHin, dhT)
+    Bsz, c, H, P, N = Hin.shape
+    # a sequence of c chunks of one step each has the same state layout
+    x = Hin.new_empty((Bsz, c, H, P))
+    dt = Hin.new_empty((Bsz, c, H))
+    Bm = Hin.new_empty((Bsz, c, N))
+    with torch.cuda.device(Hin.device):
+        k = _bwd_pass(x, dt, Hin.new_empty(H), Bm, Bm, 1, cum_end, dHin, dhT)
+        return _run_state_pass_bwd(k, Hin, cum_end, dHin, dhT, True)
+
+
+def ssd_states_bwd(x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o, chunk: int):
+    """Pass 2 reversed alone (see :func:`ssd_states_bwd_plain`); ``dx_o``
+    is not modified."""
+    if x.device.type == "cpu":
+        return ssd_states_bwd_plain(x, dt, A, Bm, dS, dcum_o, ddt_o, dce,
+                                    dx_o, chunk)
+    with torch.cuda.device(x.device):
+        k = _bwd_pass(x, dt, A, Bm, Bm, chunk, dS, dcum_o, ddt_o, dce, dx_o)
+        return _run_states_bwd(k, dS, dcum_o, ddt_o, dce,
+                               dx_o.to(torch.float32).contiguous().clone())
+
+
+def ssd_cb_bwd(Bm, Cm, dGh, dBh, dCh, dA_part, chunk: int):
+    """Pass 1 reversed alone (see :func:`ssd_cb_bwd_plain`)."""
+    if Bm.device.type == "cpu":
+        return ssd_cb_bwd_plain(Bm, Cm, dGh, dBh, dCh, dA_part, chunk)
+    Bsz, T, N = Bm.shape
+    H = dGh.shape[2]
+    x = Bm.new_empty((Bsz, T, H, 1))
+    dt = torch.empty((Bsz, T, H), device=Bm.device)
+    with torch.cuda.device(Bm.device):
+        k = _bwd_pass(x, dt, torch.empty(H, device=Bm.device), Bm, Cm, chunk,
+                      dGh, dBh, dCh, dA_part)
+        return _run_cb_bwd(k, dGh, dBh, dCh, dA_part)
+
+
+ssd_chunk_scan_bwd.launches = 0  # whole backward calls run on the card
+ssd_chunk_scan_bwd.pass_launches = dict.fromkeys(BWD_PASSES, 0)

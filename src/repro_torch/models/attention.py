@@ -8,7 +8,7 @@ same masks and the same f32 accumulation.  ``chunk_attention`` is the
 chunked-prefill primitive.  ``flash_causal_attention`` is the reference's
 flash form: its forward (``_flash_fwd_impl``, which also returns the
 log-sum-exp) is the blockwise online softmax, and its memory-saving
-backward is not ported (see :func:`flash_causal_attention`).
+backward ``_flash_bwd`` recomputes the probabilities block by block.
 """
 from __future__ import annotations
 
@@ -110,17 +110,115 @@ def blockwise_causal_attention(
     return _flash_fwd_impl(q, k, v, window, block_q, block_k)[0]
 
 
+def _flash_bwd(window: int, block_q: int, block_k: int, res, dout):
+    """The reference's custom VJP of flash attention: each block's
+    probabilities recomputed from ``lse`` (no O(T^2) residual), then a dq
+    pass over query blocks and a dk / dv pass over key blocks, f32
+    throughout.  ``res`` = (q, k, v, out, lse) from the forward.  Returns
+    (dq, dk, dv) in q's, k's and v's types."""
+    q, k, v, out, lse = res
+    B, T, H, P = q.shape
+    K = k.shape[2]
+    G = H // K
+    block_q = min(block_q, T)
+    block_k = min(block_k, T)
+    scale = P ** -0.5
+    f32 = torch.float32
+    dev = q.device
+    # D_i = sum_p dout_i * out_i  (B, K, G, T)
+    D = torch.einsum("bthp,bthp->bth", dout.float(), out.float())
+    D = D.reshape(B, T, K, G).permute(0, 2, 3, 1)
+    padq, padk = -T % block_q, -T % block_k
+    Tq, Tk = T + padq, T + padk
+    nq, nk = Tq // block_q, Tk // block_k
+
+    def pad_t(x, pad, dim=1):
+        if not pad:
+            return x
+        shape = list(x.shape)
+        shape[dim] = pad
+        return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+    qb = pad_t(q, padq).reshape(B, nq, block_q, K, G, P)
+    dob = pad_t(dout, padq).reshape(B, nq, block_q, K, G, P).float()
+    kb = pad_t(k, padk).reshape(B, nk, block_k, K, P)
+    vb = pad_t(v, padk).reshape(B, nk, block_k, K, P).float()
+    lseb = pad_t(lse, padq, 3).reshape(B, K, G, nq, block_q)
+    Db = pad_t(D, padq, 3).reshape(B, K, G, nq, block_q)
+    q_pos = torch.arange(block_q, device=dev)
+    k_pos = torch.arange(block_k, device=dev)
+
+    def block_p(qi, ki):
+        s = _gqa_scores(qb[:, qi], kb[:, ki]) * scale  # (B, K, G, bq, bk)
+        abs_q = qi * block_q + q_pos
+        abs_k = ki * block_k + k_pos
+        mask = abs_k[None, :] <= abs_q[:, None]
+        if window:
+            mask &= (abs_q[:, None] - abs_k[None, :]) < window
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        return torch.exp(s - lseb[:, :, :, qi, :, None])  # exact probs
+
+    def block_ds(qi, ki, p):
+        dp = torch.einsum("bqkgp,bskp->bkgqs", dob[:, qi], vb[:, ki])
+        return p * (dp - Db[:, :, :, qi, :, None]) * scale
+
+    # dq pass: over query blocks, key blocks in order
+    dqs = []
+    for qi in range(nq):
+        dq = torch.zeros((B, block_q, K, G, P), dtype=f32, device=dev)
+        for ki in range(nk):
+            ds = block_ds(qi, ki, block_p(qi, ki))
+            dq = dq + torch.einsum("bkgqs,bskp->bqkgp", ds,
+                                   kb[:, ki].float())
+        dqs.append(dq)
+    dq = torch.stack(dqs, dim=1).reshape(B, Tq, H, P)[:, :T]
+    # dk / dv pass: over key blocks, query blocks in order
+    dks, dvs = [], []
+    for ki in range(nk):
+        dk = torch.zeros((B, block_k, K, P), dtype=f32, device=dev)
+        dv = torch.zeros_like(dk)
+        for qi in range(nq):
+            p = block_p(qi, ki)
+            dv = dv + torch.einsum("bkgqs,bqkgp->bskp", p, dob[:, qi])
+            ds = block_ds(qi, ki, p)
+            dk = dk + torch.einsum("bkgqs,bqkgp->bskp", ds,
+                                   qb[:, qi].float())
+        dks.append(dk)
+        dvs.append(dv)
+    dk = torch.stack(dks, dim=1).reshape(B, Tk, K, P)[:, :T]
+    dv = torch.stack(dvs, dim=1).reshape(B, Tk, K, P)[:, :T]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash_fwd_impl`` forward, ``_flash_bwd`` backward: the saved
+    residuals are (q, k, v, out, lse), as the reference's ``_flash_fwd``
+    saves them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, block_q, block_k):
+        out, lse = _flash_fwd_impl(q, k, v, window, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (window, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.cfg, ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None
+
+
 def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, window: int = 0,
                            block_q: int = 512, block_k: int = 512
                            ) -> torch.Tensor:
-    """The reference's flash attention, forward only: ``_flash_fwd_impl``'s
-    output.  The reference pairs it with a custom VJP that recomputes the
-    scores block by block from ``lse`` instead of saving the O(T^2)
-    probabilities (``_flash_bwd``); that backward is not ported yet
-    (ROADMAP.md, Queue A item 5, training).  Autograd differentiates this
-    plain torch body as it stands, saving the per-block probabilities."""
-    return _flash_fwd_impl(q, k, v, window, block_q, block_k)[0]
+    """The reference's flash attention with its custom VJP: the forward is
+    ``_flash_fwd_impl``'s output (the same arithmetic as
+    :func:`blockwise_causal_attention`), the backward ``_flash_bwd``, which
+    recomputes each block's scores from the saved log-sum-exp instead of
+    keeping the O(T^2) probabilities.  The reference computes both outside
+    any Pallas kernel, and so does the port, in plain torch."""
+    return _FlashAttention.apply(q, k, v, window, block_q, block_k)
 
 
 def decode_attention(

@@ -37,6 +37,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .._device import resolve_device
 from .attention import (blockwise_causal_attention, chunk_attention,
@@ -77,10 +78,12 @@ def current_executor():
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's fields, with ``dtype`` a ``torch.dtype``.  The
-    reference's execution hints ``remat``, ``unstacked_exec`` and
-    ``attn_unroll`` are kept so that configurations compare field by field;
-    the eager port has nothing for them to change."""
+    """The reference's fields, with ``dtype`` a ``torch.dtype``.  ``remat``
+    recomputes each layer's activations in the backward (the reference's
+    ``jax.checkpoint`` per layer, here ``torch.utils.checkpoint``).  The
+    reference's execution hints ``unstacked_exec`` and ``attn_unroll`` are
+    kept so that configurations compare field by field; the eager port has
+    nothing for them to change."""
 
     name: str
     n_layers: int
@@ -127,8 +130,8 @@ class ModelConfig:
     remat: bool = False
     unstacked_exec: bool = False
     attn_unroll: bool = False
-    # attention through ``flash_causal_attention`` (forward only: the
-    # reference's custom VJP is not ported)
+    # attention through ``flash_causal_attention`` (its backward recomputes
+    # the probabilities from the saved log-sum-exp)
     flash_vjp: bool = False
 
     @property
@@ -498,17 +501,27 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, embeds=None,
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
     win = cfg.sliding_window if window is None else window
+
+    def mamba_layer(layer, x):
+        y, _ = mamba_forward(layer["mamba"], rms_norm(x, layer["norm"]),
+                             cfg.ssm_dims, cfg.ssm_chunk)
+        return x + y
+
+    def attn_layer(layer, x, ffn_key="ffn"):
+        return _attn_block_full(cfg, layer, x, positions, win, ffn_key)
+
+    if cfg.remat and torch.is_grad_enabled():
+        # each layer's activations are recomputed in the backward
+        remat = lambda fn: functools.partial(
+            torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
+        mamba_layer, attn_layer = remat(mamba_layer), remat(attn_layer)
     for i, layer in enumerate(params["layers"]):
         if cfg.layer_kind(i) == "mamba":
-            y, _ = mamba_forward(layer["mamba"], rms_norm(x, layer["norm"]),
-                                 cfg.ssm_dims, cfg.ssm_chunk)
-            x = x + y
+            x = mamba_layer(layer, x)
             if cfg.has_shared_attn(i):
-                x = _attn_block_full(cfg, params["shared_attn"], x,
-                                     positions, win, "ffn")
+                x = attn_layer(params["shared_attn"], x)
         else:
-            x = _attn_block_full(cfg, layer, x, positions, win,
-                                 _layer_ffn_key(cfg, i))
+            x = attn_layer(layer, x, _layer_ffn_key(cfg, i))
     x = rms_norm(x, params["final_norm"])
     return _lm_head(cfg, params, x)
 

@@ -11,7 +11,10 @@ Full sequences use the chunked dual form.  Unlike the reference, whose
 ``ssd_chunked`` is plain jnp, the port's runs every chunk through the SSD
 kernel (``kernels/ssd_chunk.py``): one ``ssd_chunk`` launch (four
 chunk-parallel passes) per call on a CUDA tensor, the plain version on a
-CPU tensor.  Decode is a single recurrence step on a
+CPU tensor.  Under autograd the scan's backward is the hand-written SSD
+backward kernel (one ``ssd_chunk_scan_bwd`` launch, four reversed
+passes), where the reference differentiates its jnp body.  Decode is a
+single recurrence step on a
 carried (B, H, P, N) state, in plain torch as in the reference.
 """
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
-from ..kernels.ssd_chunk import ssd_chunk_scan
+from ..kernels.ssd_chunk import (ssd_chunk_scan, ssd_chunk_scan_bwd,
+                                 ssd_chunk_scan_train)
 from .common import lecun_init, rms_norm
 
 __all__ = ["SSMDims", "MambaState", "init_mamba_params", "mamba_forward",
@@ -90,14 +94,51 @@ def init_mamba_params(gen: torch.Generator, dims: SSMDims,
 # SSD core
 # ---------------------------------------------------------------------------
 
+class _SSDChunked(torch.autograd.Function):
+    """The SSD scan with its hand-written backward: the forward is the
+    four-pass kernel (``ssd_chunk_scan_train``, which also hands back the
+    causal C B^T of each chunk, the states entering each chunk and the
+    chunks' total decays), the backward the four reversed passes
+    (``ssd_chunk_scan_bwd``), which recompute the running decay inside each
+    chunk.  On a CPU tensor both directions are the passes' plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):
+        y, hT, saved = ssd_chunk_scan_train(x, dt, A, Bm, Cm, init_state,
+                                            chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state, *saved)
+        ctx.chunk = chunk
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, dt, A, Bm, Cm, init_state, *saved = ctx.saved_tensors
+        want_h0 = init_state is not None and ctx.needs_input_grad[5]
+        dx, ddt, dA, dB, dC, dh0 = ssd_chunk_scan_bwd(
+            x, dt, A, Bm, Cm, saved, dy, dhT, ctx.chunk, want_dh0=want_h0)
+        return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+                dB.to(Bm.dtype), dC.to(Cm.dtype),
+                dh0.to(init_state.dtype) if want_h0 else None, None)
+
+
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 128, init_state=None):
     """x (B, T, H, P), dt (B, T, H) positive, A (H,) negative, Bm / Cm
     (B, T, N), init_state (B, H, P, N) or None.  Returns (y: (B, T, H, P)
     in x's dtype, final_state: (B, H, P, N) f32); f32 internals.  A ragged
-    last chunk is padded with dt = 0 steps, as in the reference."""
+    last chunk is padded with dt = 0 steps, as in the reference.
+
+    When autograd records (grad mode on and an input that requires grad)
+    the scan runs as :class:`_SSDChunked`, whose backward is the SSD
+    backward kernel; otherwise, as in serving, it is one ``ssd_chunk_scan``
+    call and nothing is kept."""
     T = x.shape[1]
-    return ssd_chunk_scan(x, dt.float(), A.float(), Bm, Cm, init_state,
-                          min(chunk, T))
+    dt, A = dt.float(), A.float()
+    ins = (x, dt, A, Bm, Cm, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ins):
+        return _SSDChunked.apply(x, dt, A, Bm, Cm, init_state, min(chunk, T))
+    return ssd_chunk_scan(x, dt, A, Bm, Cm, init_state, min(chunk, T))
 
 
 def ssd_step(state, x, dt, A, Bm, Cm):

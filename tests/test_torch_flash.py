@@ -1,4 +1,4 @@
-"""The port's flash-attention forward vs the JAX reference.
+"""The port's flash attention, forward and backward, vs the JAX reference.
 
 ``attention.py::_flash_fwd_impl`` returns ``out`` (B, T, H, P) and the
 log-sum-exp ``lse`` (B, K, G, T); ``flash_causal_attention`` its ``out``.
@@ -28,6 +28,7 @@ from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as TM
+from repro_torch.optim import tree_leaves
 
 CASES = [
     # B, T, H, K, P, block_q, block_k, window
@@ -126,3 +127,79 @@ def test_model_forward_with_flash_vjp_matches_reference(arch):
     plain = TM.forward(dataclasses.replace(tc, flash_vjp=False), tp,
                        torch.as_tensor(toks))
     assert torch.equal(got, plain)
+
+
+# ---------------------------------------------------------------------------
+# the backward: the reference's custom VJP, ported
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_flash_grad(window, bq, bk):
+    def obj(q, k, v, do):
+        return jnp.sum(jattn.flash_causal_attention(q, k, v, window, bq, bk)
+                       * do)
+    return jax.jit(jax.grad(obj, argnums=(0, 1, 2)))
+
+
+@pytest.mark.parametrize("B,T,H,K,P,bq,bk,window", CASES)
+def test_flash_backward_matches_jax_grad_of_the_reference(B, T, H, K, P, bq,
+                                                          bk, window):
+    """dq, dk, dv of ``flash_causal_attention`` (``_flash_bwd``: the
+    probabilities recomputed from the saved log-sum-exp) against
+    ``jax.grad`` through the reference's custom VJP, within 1e-5 of each
+    gradient's largest magnitude (f32 sums of at most T x P products in
+    other orders), and against autograd through the port's blockwise
+    forward within the same."""
+    q, k, v = _qkv(B, T, H, K, P, 3 * T + H)
+    do = np.random.default_rng(T).normal(size=(B, T, H, P)).astype(
+        np.float32)
+    want = _jax_flash_grad(window, bq, bk)(to_j(q), to_j(k), to_j(v),
+                                           to_j(do))
+
+    def grads(fn):
+        ins = [to_t(a).requires_grad_(True) for a in (q, k, v)]
+        return torch.autograd.grad(fn(*ins), ins, to_t(do))
+
+    got = grads(lambda a, b, c: tattn.flash_causal_attention(
+        a, b, c, window, bq, bk))
+    plain = grads(lambda a, b, c: tattn.blockwise_causal_attention(
+        a, b, c, window=window, block_q=bq, block_k=bk))
+    for name, g, w, p in zip(("dq", "dk", "dv"), got, want, plain):
+        assert g.dtype == torch.float32
+        _rel_close(g, w, 1e-5, f"{name} vs reference")
+        _rel_close(g, p, 1e-5, f"{name} vs blockwise autograd")
+
+
+def test_flash_backward_keeps_no_probabilities_and_types():
+    """The saved residuals are (q, k, v, out, lse): nothing of size T^2;
+    bf16 inputs get bf16 gradients."""
+    B, T, H, K, P = 1, 40, 2, 1, 8
+    q, k, v = (to_t(a, "bfloat16").requires_grad_(True)
+               for a in _qkv(B, T, H, K, P, 9))
+    out = tattn.flash_causal_attention(q, k, v, 0, 8, 8)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5 and max(t.numel() for t in saved) == B * T * H * P
+    dq, dk, dv = torch.autograd.grad(out.float().sum(), (q, k, v))
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+
+
+def test_model_gradient_with_flash_vjp_equals_blockwise_autograd():
+    """A smoke gemma-2b loss differentiated with ``flash_vjp=True`` (the
+    custom backward) and without (autograd through the blockwise
+    forward): every parameter's gradient within 1e-4 of its largest
+    magnitude."""
+    cfg = dataclasses.replace(tconfigs.smoke_config("gemma-2b"), block_q=8,
+                              block_k=4)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(4),
+                            device="cpu")
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 19)))
+
+    def grads(flash):
+        c = dataclasses.replace(cfg, flash_vjp=flash)
+        return torch.autograd.grad(TM.forward(c, params, toks).logsumexp(
+            -1).mean(), leaves)
+
+    for g, w in zip(grads(True), grads(False)):
+        _rel_close(g, w, 1e-4, "model gradient")
