@@ -157,6 +157,24 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    widths, depth 1, differentiated with ``flash_vjp=True``
                    against ``False``, leaf by leaf.
 
+11. ``sharded``  — ``coded_matmul_sharded`` on Zamba2-1.2B's (4096, 2048) @
+                   (2048, 8192) and ``coded_conv2d_sharded`` on VGG16's
+                   conv2_2 at 224x224, MDS (10, 6), f32: ten spawned
+                   processes on the one card in a gloo group (NCCL takes
+                   one rank a device), one coded piece a rank.  Rank 0
+                   within the ``coded_ops`` err/tol of f64, every rank's y
+                   bit for bit rank 0's, two runs bit for bit, each rank's
+                   encode, piece and decode launches against the design,
+                   wall per op (the ranks time-share the card).
+12. ``dryrun``   — on the CPU, in a spawned process started before the
+                   first phase and read at the end: ``run_one`` of
+                   ``repro_torch.launch.dryrun`` for gemma-2b x decode_32k
+                   and zamba2-1.2b x train_4k on the single-pod mesh (fake
+                   process group, fake DTensors), under this machine's
+                   torch; and the ``train`` phase's own step counted on a
+                   1 x 1 mesh, with its share of the f32 peak and of HBM
+                   bandwidth at the s/step the ``train`` phase measured.
+
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  There is no fallback: no GPU, a kernel
 that does not build or launch, or any failed check ends the run with a
@@ -164,7 +182,9 @@ non-zero exit code and no result line.
 
 ``--phases kernels,zamba2`` runs a subset (for debugging; the result line is
 only printed when every phase ran; ``zamba2_mesh``, ``adaptive`` and
-``serving`` need ``zamba2``; ``families`` and ``train`` stand alone).
+``serving`` need ``zamba2``; ``families``, ``train``, ``sharded`` and
+``dryrun`` stand alone, ``dryrun`` giving the train step's share only when
+``train`` ran).
 ``--time-kernels CHECKOUT`` only times the skinny GEMM, the conv and the
 SSD scan of the port in another checkout (a parent commit unpacked beside
 this one) at this script's f32 cases, so that two versions can be held
@@ -190,7 +210,8 @@ L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 SEED = 0
 N_WORKERS = 10
 ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16", "zamba2",
-              "zamba2_mesh", "adaptive", "serving", "families", "train")
+              "zamba2_mesh", "adaptive", "serving", "families", "train",
+              "sharded", "dryrun")
 
 
 def emit(obj: dict) -> None:
@@ -4448,7 +4469,7 @@ def train_run(torch) -> dict:
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, step_s
 
 
 FLASH_CASES = (  # T, block, window
@@ -4542,9 +4563,9 @@ def train_flash(torch) -> None:
           "gemma_2b_depth1_flash_vjp_rel_err_by_leaf": model_rel})
 
 
-def phase_train(torch) -> dict:
+def phase_train(torch) -> tuple:
     """Parts (a) to (d), one JSON line each; returns the counted paths'
-    launches."""
+    launches and (b)'s s/step."""
     import gc
 
     gc.collect()
@@ -4555,9 +4576,301 @@ def phase_train(torch) -> dict:
     del params, grads
     gc.collect()
     torch.cuda.empty_cache()
-    counts["train"] = train_run(torch)
+    counts["train"], step_s = train_run(torch)
     train_flash(torch)
-    return counts
+    return counts, step_s
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the sharded coded forms, n processes on the one card
+# ---------------------------------------------------------------------------
+
+SHARDED_NK = (10, 6)
+# Zamba2-1.2B's shared-block FFN GEMM: the pool's 682-row piece
+SHARDED_MM = (4096, 2048, 8192)
+# VGG16's conv2_2 at 224x224: (B, C_I, H, W) of the padded input, C_O, K
+SHARDED_CONV = (1, 128, 114, 114, 128, 3)
+SHARDED_TIMED = 5
+SHARDED_JOIN_S = 240.0
+
+
+def sharded_rank(rank: int, n: int, store: str, out_dir: str) -> None:
+    """One rank of phase ``sharded`` (a spawned process): the sharded coded
+    matmul and conv at full width, each run twice (launches counted from
+    zero), then timed; rank 0 also holds both against f64.  Writes
+    ``rank<r>.json``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import (ConvSpec, MDSScheme, coded_conv2d_sharded,
+                                  coded_matmul_sharded)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    try:
+        torch.cuda.set_device(0)
+        mesh = init_device_mesh("cuda", (n,), mesh_dim_names=("model",))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+        T, d_in, d_out = SHARDED_MM
+        xm = _rand(torch, gen, (T, d_in), torch.float32)
+        wm = _rand(torch, gen, (d_in, d_out), torch.float32, d_in ** -0.5)
+        B, C, H, W, C_O, K = SHARDED_CONV
+        spec = ConvSpec(c_in=C, c_out=C_O, h_in=H, w_in=W, kernel=K)
+        xc = _rand(torch, gen, (B, C, H, W), torch.float32, 0.5)
+        wc = _rand(torch, gen, (C_O, C, K, K), torch.float32,
+                   (C * K * K) ** -0.5)
+        code = MDSScheme.make(*SHARDED_NK)
+        ops = {"matmul": (lambda: coded_matmul_sharded(xm, wm, code, mesh),
+                          lambda: xm.double() @ wm.double(), d_in),
+               "conv2d": (lambda: coded_conv2d_sharded(xc, wc, code, spec,
+                                                       mesh),
+                          lambda: torch.nn.functional.conv2d(
+                              xc.double(), wc.double()), C * K * K)}
+        out = {"rank": rank, "device": torch.cuda.current_device()}
+        for name, (fn, f64, R) in ops.items():
+            dist.barrier()
+            zero_launch_counters()
+            with LaunchTally() as tally:
+                y1 = fn()
+                y2 = fn()
+                torch.cuda.synchronize()
+            counts = read_launch_counters()
+            walls = []
+            for _ in range(SHARDED_TIMED):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            digest = [hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+                      for y in (y1, y2)]
+            rec = {"launches": {k: v for k, v in counts.items() if v},
+                   "tally": [[*key, c] for key, c in tally.counts.items()],
+                   "sha256": digest, "shape": list(y1.shape),
+                   "wall_s": walls}
+            if rank == 0:
+                want = f64()
+                amp = decode_amplification(code, code.default_subset())
+                rec["max_abs_err"] = float((y1.double() - want).abs().max())
+                rec["tol"] = (amp * R ** 0.5 * 2.0 ** -24
+                              * float(want.abs().max()))
+                rec["decode_amplification"] = amp
+                rec["finite"] = bool(torch.isfinite(y1).all())
+            out[name] = rec
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(torch) -> dict:
+    """``coded_matmul_sharded`` and ``coded_conv2d_sharded`` at (n, k) =
+    (10, 6), one rank a piece, the n ranks processes that share the one
+    card (gloo; NCCL takes one rank a device).  Every rank's y equals rank
+    0's bit for bit, two runs equal bit for bit, rank 0 within err/tol of
+    f64 (the ``coded_ops`` bound); the encode, piece and decode launches
+    of each rank against the design.  Returns the ranks' launches."""
+    import multiprocessing
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    _build.build_all()  # the ranks load what the parent built
+    n, k = SHARDED_NK
+    d = os.path.join(ROOT, "build", "sharded")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, n, os.path.join(d, "store"), d))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARDED_JOIN_S
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join(timeout=30)
+    require(not hung, f"sharded: ranks {hung} did not finish in "
+                      f"{SHARDED_JOIN_S} s")
+    require(all(p.exitcode == 0 for p in procs),
+            f"sharded: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    wall = time.perf_counter() - t0
+    T, d_in, d_out = SHARDED_MM
+    t_p = T // k
+    B, C, H, W, C_O, K = SHARDED_CONV
+    # the design, per rank per op: encode, piece and decode of the
+    # matmul on the skinny GEMM (the remainder rows are the master's
+    # library product, as in coded_matmul); the conv's encode and decode
+    # on the skinny GEMM, its piece and remainder on the conv kernel
+    design = {"matmul": {"skinny_gemm": 3}, "conv2d": {"skinny_gemm": 2,
+                                                      "conv2d": 2}}
+    rows, launches = {}, {"skinny_gemm": 0, "conv2d": 0}
+    held = {(m, b, F) for _, A, F, *_ in gemm_cases(torch)
+            for m, b in [A if isinstance(A, tuple) else A.shape]}
+    for op in ("matmul", "conv2d"):
+        head = ranks[0][op]
+        require(head["finite"], f"sharded {op}: non-finite output")
+        require(head["max_abs_err"] <= head["tol"],
+                f"sharded {op}: err {head['max_abs_err']} > tol "
+                f"{head['tol']}")
+        require(head["sha256"][0] == head["sha256"][1],
+                f"sharded {op}: two runs differ")
+        for rk in ranks:
+            require(rk[op]["sha256"] == head["sha256"],
+                    f"sharded {op}: rank {rk['rank']} differs from rank 0")
+            per_op = {kk: v / 2 for kk, v in rk[op]["launches"].items()}
+            require(per_op == design[op],
+                    f"sharded {op}: rank {rk['rank']} launched {per_op}, "
+                    f"design {design[op]}")
+            for kk, v in rk[op]["launches"].items():
+                launches[kk] += v
+            missing = {tuple(t[2:5]) for t in rk[op]["tally"]} - held
+            require(not missing, f"sharded {op}: skinny-GEMM shapes no "
+                                 f"kernels case holds: {missing}")
+        walls = [min(rk[op]["wall_s"]) for rk in ranks]
+        rows[op] = {
+            "shape": ((T, d_in, d_out) if op == "matmul"
+                      else [B, C, H, W, C_O, K]),
+            "piece": ([t_p, d_in, d_out] if op == "matmul" else None),
+            "max_abs_err": head["max_abs_err"], "tol": head["tol"],
+            "err_over_tol": head["max_abs_err"] / head["tol"],
+            "decode_amplification": head["decode_amplification"],
+            "wall_ms_rank0_median": 1e3 * sorted(
+                ranks[0][op]["wall_s"])[len(ranks[0][op]["wall_s"]) // 2],
+            "wall_ms_min_over_ranks": 1e3 * min(walls),
+            "wall_ms_max_over_ranks": 1e3 * max(walls),
+            "launches_per_rank_per_op": {
+                kk: v / 2 for kk, v in head["launches"].items()},
+            "launches_by_regime_rank0": head["tally"],
+            "ranks_bit_identical": True, "runs_bit_identical": True}
+    emit({"phase": "sharded", "n": n, "k": k, "ranks": n,
+          "what": "coded_matmul_sharded on Zamba2-1.2B's (4096, 2048) @ "
+                  "(2048, 8192) and coded_conv2d_sharded on VGG16's "
+                  "conv2_2 at 224x224, MDS (10, 6), f32, one rank a "
+                  "piece, gloo all-gather of the pieces",
+          "note": "the ranks are processes that time-share one card: a "
+                  "wall here is no multi-card figure",
+          "ops": rows, "seconds": wall})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the dry-run, on the CPU while the card works
+# ---------------------------------------------------------------------------
+
+DRYRUN_COMBOS = (("gemma-2b", "decode_32k"), ("zamba2-1.2b", "train_4k"))
+DRYRUN_JOIN_S = 900.0
+
+
+def dryrun_job(out_path: str) -> None:
+    """The ``dryrun`` phase's work, in a spawned CPU process started before
+    the card's phases: ``run_one`` for DRYRUN_COMBOS on the single-pod
+    mesh, and the FLOPs and bytes of the ``train`` phase's own step
+    (Zamba2-1.2B, f32, B 4 x T 512, no remat) on a 1 x 1 mesh.  Writes one
+    JSON object to ``out_path``; raises (a non-zero exit) when a run
+    fails."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.dryrun import (fake_process_group, run_one,
+                                           step_metrics)
+    from repro_torch.launch.steps import (abstract_opt_state,
+                                          abstract_params, input_specs,
+                                          make_train_step)
+
+    torch.set_num_threads(1)
+    out = {"torch": torch.__version__, "records": []}
+    t0 = time.perf_counter()
+    for arch, shape in DRYRUN_COMBOS:
+        out["records"].append(run_one(arch, shape, verbose=False))
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), dtype=torch.float32)
+    shape = InputShape("train_phase", TRAIN_T, TRAIN_B, "train")
+    with fake_process_group(1):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            params = abstract_params(cfg, mesh)
+            args = (params, abstract_opt_state(params, mesh),
+                    input_specs(cfg, shape, mesh), 0)
+        m = step_metrics(make_train_step(cfg, base_lr=3e-4,
+                                         total_steps=TRAIN_STEPS), args)
+    out["train_step"] = {"flops": m["flops"], "bytes": m["bytes"],
+                         "ops": m["ops"]}
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_dryrun():
+    """Start :func:`dryrun_job` in a spawned process; returns (process,
+    output path)."""
+    import multiprocessing
+
+    d = os.path.join(ROOT, "build", "dryrun")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "dryrun.json")
+    if os.path.exists(path):
+        os.remove(path)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=dryrun_job, args=(path,))
+    proc.start()
+    return proc, path
+
+
+def phase_dryrun(job, train_step_s, smi: str) -> None:
+    """Wait for the dry-run process and print its records, one line each,
+    and the ``train`` step's roofline share at the card's f32 peak (TF32
+    off) and HBM bandwidth."""
+    proc, path = job
+    proc.join(timeout=DRYRUN_JOIN_S)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(timeout=30)
+        raise Failed(f"dryrun: the CPU run did not finish in "
+                     f"{DRYRUN_JOIN_S} s")
+    require(proc.exitcode == 0, f"dryrun: the CPU run exited "
+                                f"{proc.exitcode}")
+    with open(path) as f:
+        res = json.load(f)
+    for rec in res["records"]:
+        require(0.0 < rec["useful_ratio"] <= 1.0 and rec["hlo_flops"] > 0,
+                f"dryrun: {rec['arch']} x {rec['shape']}: {rec}")
+        emit({"phase": "dryrun", "torch": res["torch"], **rec})
+    ts = res["train_step"]
+    line = {"phase": "dryrun", "part": "train_step_roofline",
+            "what": "the train phase's step (Zamba2-1.2B, f32, B 4 x T "
+                    "512, no remat) counted on a 1 x 1 mesh: matmul "
+                    "FLOPs, and operand plus result bytes of its ops as "
+                    "the CPU's plain versions run them",
+            "flops": ts["flops"], "bytes": ts["bytes"],
+            "dryrun_seconds": res["seconds"], "nvidia_smi": smi}
+    if train_step_s is not None:
+        line.update({
+            "step_s": train_step_s,
+            "flops_share_of_f32_peak": ts["flops"] / train_step_s
+            / PEAK_FLOPS["float32"],
+            "bytes_share_of_hbm": ts["bytes"] / train_step_s
+            / PEAK_BYTES_PER_S})
+    emit(line)
 
 
 # ---------------------------------------------------------------------------
@@ -4654,6 +4967,8 @@ def main() -> int:
         time_kernels(torch, args.time_kernels)
         return 0
 
+    # the dry-run works on the CPU while the card runs the other phases
+    dryrun = start_dryrun() if "dryrun" in phases else None
     # the yardsticks and the plain versions run in full f32 on the card,
     # and bf16 products accumulate in f32, as the reference's do
     torch.backends.cudnn.allow_tf32 = False
@@ -4692,9 +5007,16 @@ def main() -> int:
     if "families" in phases:
         zamba2 = None  # the earlier phases' model: released first
         by_path["families"] = timed("families", phase_families, torch)
+    train_step_s = None
     if "train" in phases:
         zamba2 = None
-        by_path.update(timed("train", phase_train, torch))
+        counts, train_step_s = timed("train", phase_train, torch)
+        by_path.update(counts)
+    if "sharded" in phases:
+        by_path["sharded"] = timed("sharded", phase_sharded, torch)
+    if "dryrun" in phases:
+        timed("dryrun", phase_dryrun, dryrun, train_step_s,
+              nvidia_smi_line())
 
     if set(phases) != set(ALL_PHASES):
         print(f"partial run ({phases}): no result line", file=sys.stderr)
@@ -4715,3 +5037,9 @@ if __name__ == "__main__":
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        import multiprocessing
+
+        for child in multiprocessing.active_children():  # the dry-run's
+            child.kill()
+            child.join(timeout=30)

@@ -36,10 +36,12 @@ from .splitting import (
 from .coded_conv import (
     conv2d,
     coded_conv2d,
+    coded_conv2d_sharded,
     run_segment,
     boundary_op_counter,
 )
-from .coded_linear import coded_matmul, coded_ffn_segment
+from .coded_linear import (coded_matmul, coded_matmul_sharded,
+                           coded_ffn_segment)
 from .netplan import (
     LayerInfo,
     NetPlan,
@@ -82,8 +84,9 @@ __all__ = [
     "UncodedScheme", "get_scheme", "register_scheme", "scheme_names",
     "ConvSpec", "SplitPlan", "SegmentSplitPlan", "plan_width_split",
     "plan_token_split", "plan_segment_split", "chain_steps",
-    "conv2d", "coded_conv2d", "run_segment", "boundary_op_counter",
-    "coded_matmul", "coded_ffn_segment",
+    "conv2d", "coded_conv2d", "coded_conv2d_sharded", "run_segment",
+    "boundary_op_counter",
+    "coded_matmul", "coded_matmul_sharded", "coded_ffn_segment",
     "LayerInfo", "NetPlan", "SegmentStep", "LocalStep", "compile_plan",
     "segment_latency",
     "ShiftExp", "SystemParams", "phase_sizes", "harmonic",

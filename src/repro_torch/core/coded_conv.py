@@ -32,6 +32,9 @@ Two execution modes:
                                 re-dispatched.
 * ``run_segment``             — a coded multi-layer segment: one encode,
                                 per-piece conv chains, one decode.
+* ``coded_conv2d_sharded``    — SPMD over a ``torch.distributed`` mesh
+                                axis: each rank computes one coded piece
+                                (the reference's pod form, DESIGN.md §3).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ __all__ = [
     "conv2d_chunked",
     "split_input",
     "coded_conv2d",
+    "coded_conv2d_sharded",
     "run_segment",
     "boundary_op_counter",
     "ACTIVATIONS",
@@ -363,4 +367,75 @@ def run_segment(
             x[..., split.remainder.entry.a_i:split.remainder.entry.b_i],
             split.remainder, weights, specs, pads, acts, apply_acts=True)
         y = torch.cat([y, y_rem], dim=-1)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# the sharded (SPMD) form: one coded piece per rank of a mesh axis
+# ---------------------------------------------------------------------------
+
+def piece_rank(mesh, axis: str, code: CodingScheme) -> tuple[int, object]:
+    """``(this rank's coordinate on axis, the axis' process group)`` of a
+    ``DeviceMesh`` whose ``axis`` holds one coded piece per rank; raises the
+    reference's ``ValueError`` when its extent is not ``code.n``."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh has no {axis!r} axis (axes: {names})")
+    n = mesh.size(names.index(axis))
+    if n != code.n:
+        raise ValueError(f"mesh axis {axis} has size {n}, code.n={code.n}")
+    return mesh.get_local_rank(axis), mesh.get_group(axis)
+
+
+def gather_pieces(piece: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``piece`` of ``group``, stacked in rank order: (n,) +
+    piece.shape, on ``piece``'s device.  One all-gather
+    (``all_gather_into_tensor``) of the contiguous piece, on its own
+    device: gloo gathers CUDA tensors too (through host memory, inside the
+    collective), which the card's ranks use, since they share one device
+    and NCCL takes one rank a device."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    src = piece.contiguous()
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.view((n,) + tuple(src.shape))
+
+
+def coded_conv2d_sharded(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    code: CodingScheme,
+    spec: ConvSpec,
+    mesh,
+    axis: str = "model",
+) -> torch.Tensor:
+    """Pod form: the n coded subtasks live on the ``axis`` mesh axis.
+
+    SPMD over a ``torch.distributed`` ``DeviceMesh``: every rank holds x
+    and w, splits and encodes as :func:`coded_conv2d` does (the coding GEMM
+    kernel), runs the piece of its coordinate on ``axis`` through the conv
+    kernel, all-gathers the n pieces over ``axis`` (:func:`gather_pieces`),
+    decodes the scheme's canonical subset and appends the master's
+    remainder columns.  Inside one SPMD program all n results exist, so the
+    decode takes ``code.default_subset()`` — the output is the one a
+    fastest-k gather decodes, and every rank returns the same bits.
+    """
+    rank, group = piece_rank(mesh, axis, code)
+    plan = plan_width_split(spec, code.k)
+    coded_in = _encode_partitions(code, split_input(x, plan))  # (n, ...)
+    _count_op("encode")
+    coded_out = gather_pieces(conv2d(coded_in[rank], w, spec.stride), group)
+    subset = code.default_subset()
+    sel = coded_out.index_select(0, device_index(subset, coded_out.device))
+    decoded = code.decode_from(subset, sel.reshape(len(subset), -1))
+    y_parts = decoded.reshape((code.k,) + tuple(coded_out.shape[1:]))
+    _count_op("decode")
+    y = torch.cat(list(y_parts), dim=-1)
+    if plan.remainder is not None:
+        r = plan.remainder
+        y = torch.cat([y, conv2d(x[..., r.a_i : r.b_i], w, spec.stride)],
+                      dim=-1)
     return y

@@ -15,7 +15,9 @@ mirroring the paper's type-1/type-2 split.
 The functional form's n worker GEMMs and the master's remainder rows are
 plain ``torch.matmul`` products, as the reference leaves them to its
 compiler; on the worker pool (``executor=``) each piece GEMM runs the
-skinny-GEMM kernel (dist/executor.py).
+skinny-GEMM kernel (dist/executor.py), and so does each rank's piece in
+the sharded form (``coded_matmul_sharded``, one piece per rank of a
+``torch.distributed`` mesh axis).
 """
 from __future__ import annotations
 
@@ -23,13 +25,14 @@ from typing import Callable, Sequence
 
 import torch
 
-from .coded_conv import _count_op
+from ..kernels.skinny_gemm import skinny_gemm
+from .coded_conv import _count_op, gather_pieces, piece_rank
 from .coding import device_index
 from .schemes import (CodingScheme, commutes_elementwise, resolve_subset,
                       source_of_piece)
 from .splitting import SplitPlan, plan_token_split
 
-__all__ = ["coded_matmul", "coded_ffn_segment"]
+__all__ = ["coded_matmul", "coded_matmul_sharded", "coded_ffn_segment"]
 
 
 def _encode_tokens(code: CodingScheme, x: torch.Tensor, plan: SplitPlan
@@ -98,6 +101,38 @@ def coded_matmul(
         sel = coded_out.index_select(0, device_index(subset, coded_out.device))
         decoded = code.decode_from(subset, sel.reshape(len(subset), -1))
         y = decoded.reshape(code.k * plan.w_out_p, w.shape[-1])
+    _count_op("decode")
+    if plan.remainder is not None:
+        y = torch.cat([y, x[plan.remainder.a_i :] @ w], dim=0)
+    return y
+
+
+def coded_matmul_sharded(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    code: CodingScheme,
+    mesh,
+    axis: str = "model",
+) -> torch.Tensor:
+    """Pod form: n coded GEMM subtasks on the ``axis`` mesh axis.
+
+    SPMD over a ``torch.distributed`` ``DeviceMesh``: every rank holds x
+    and w, splits and encodes the tokens as :func:`coded_matmul` does (the
+    coding GEMM kernel), runs the piece of its coordinate on ``axis``
+    through the skinny-GEMM kernel's piece regime, all-gathers the n pieces
+    over ``axis``, decodes ``code.default_subset()`` and appends the
+    master's remainder rows (T mod k).  Every rank returns the same bits.
+    """
+    rank, group = piece_rank(mesh, axis, code)
+    plan = plan_token_split(x.shape[0], code.k)
+    w = w.to(x.dtype)
+    coded_in = _encode_tokens(code, x, plan)  # (n, T_p, d_in)
+    _count_op("encode")
+    coded_out = gather_pieces(skinny_gemm(coded_in[rank], w), group)
+    subset = code.default_subset()
+    sel = coded_out.index_select(0, device_index(subset, coded_out.device))
+    decoded = code.decode_from(subset, sel.reshape(len(subset), -1))
+    y = decoded.reshape(code.k * plan.w_out_p, w.shape[-1])
     _count_op("decode")
     if plan.remainder is not None:
         y = torch.cat([y, x[plan.remainder.a_i :] @ w], dim=0)

@@ -687,7 +687,13 @@ def ssd_states_bwd_plain(x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o,
     dcum = _wide(dcum_o) - dw * wh
     last = _wide(dce) + (dw * wh).sum(-1)
     dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last[..., None]], -1)
-    ddA = dcum.flip(-1).cumsum(-1).flip(-1)
+    # a running sum from the chunk's end: the L steps reversed by an index
+    # (a flip's values; a sharding rule for the dry-run's DTensors on
+    # torch 2.11, whose index_select rule needs a non-negative dim),
+    # summed, reversed back
+    rev = torch.arange(L - 1, -1, -1, device=dcum.device)
+    last = dcum.dim() - 1
+    ddA = dcum.index_select(last, rev).cumsum(last).index_select(last, rev)
     ddt = _wide(ddt_o) + dw * eh + ddA * _wide(A)[None, None, :, None]
     dA_part = (ddA * _heads_first(dtc)).sum(-1)
     ddt = ddt.permute(0, 1, 3, 2).reshape(Bsz, c * L, H)

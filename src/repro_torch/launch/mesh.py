@@ -1,24 +1,35 @@
-"""The piece lanes of one card, and the typed front door for placing coded
-pieces on them (the port of ``repro.launch.mesh``, one-card part).
+"""Meshes: the production mesh of many cards, the piece lanes of one card,
+and the typed front door for placing coded pieces on either (the port of
+``repro.launch.mesh``).
 
-The reference's coded path (``dist/mesh_exec.py``) treats the ``model`` axis
-of a JAX device mesh as the worker fleet: one coded piece per axis slice.
-One card has no device mesh.  Its counterpart of an axis slice is a *piece
-lane*: one piece's block of rows in a stacked launch
-(``kernels.skinny_gemm.piece_gemm_stacked``, ``kernels.conv2d.conv2d_stacked``).
-:class:`LocalMesh` names the lanes with the reference's axis vocabulary, so
-``validate_pieces`` keeps its contract: callers get a
+:func:`make_production_mesh` builds the reference's production meshes as a
+``torch.distributed`` :class:`~torch.distributed.device_mesh.DeviceMesh`:
+``(data=16, model=16)``, 256 ranks, or ``(pod=2, data=16, model=16)``, 512.
+It needs a default process group of that size, real or fake (the dry-run,
+``launch/dryrun.py``, uses the fake backend); nothing here creates one, and
+importing this module touches no device and no process group.
+
+The coded path treats the ``model`` axis as the worker fleet: one coded
+piece per axis slice (``core.coded_linear.coded_matmul_sharded``,
+``core.coded_conv.coded_conv2d_sharded``).  One card has no device mesh.
+Its counterpart of an axis slice is a *piece lane*: one piece's block of
+rows in a stacked launch (``kernels.skinny_gemm.piece_gemm_stacked``,
+``kernels.conv2d.conv2d_stacked``), which :class:`LocalMesh` names with the
+reference's axis vocabulary for ``dist/mesh_exec.py::MeshExecutor``.
+
+Every function here takes either kind of mesh, or a plain ``{axis:
+extent}`` mapping in mesh order (:func:`axis_sizes`), so
+``validate_pieces`` keeps its contract on both: callers get a
 ``PiecePlacementError`` naming n and the axis extent instead of a shape
-failure inside a launch.
-
-Not ported here: ``make_production_mesh`` and ``dp_axes``, which shard a
-model across chips (ROADMAP.md, Queue A).
+failure inside a launch or a collective.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping
 
-__all__ = ["LocalMesh", "make_local_mesh", "validate_pieces", "MODEL_AXIS",
+__all__ = ["LocalMesh", "make_local_mesh", "make_production_mesh",
+           "axis_sizes", "dp_axes", "validate_pieces", "MODEL_AXIS",
            "PIECE_LANES", "PiecePlacementError"]
 
 MODEL_AXIS = "model"
@@ -62,15 +73,50 @@ def make_local_mesh(*, model: int | None = None) -> LocalMesh:
     return LocalMesh(int(model))
 
 
-def validate_pieces(mesh: LocalMesh, n: int, axis: str = MODEL_AXIS) -> int:
-    """Check n coded pieces fit the mesh's worker axis; return its extent."""
-    if axis not in mesh.shape:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """Single pod: (data=16, model=16) = 256 ranks.
+    Multi-pod: (pod=2, data=16, model=16) = 512 ranks.
+
+    A ``DeviceMesh`` over the default process group, which must already
+    hold that many ranks (``torch.distributed.init_process_group``; the
+    dry-run's is the fake backend)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: extent}`` in mesh order, for a ``DeviceMesh``, a
+    :class:`LocalMesh` or such a mapping itself."""
+    if isinstance(mesh, Mapping):
+        return {str(a): int(e) for a, e in mesh.items()}
+    if isinstance(mesh, LocalMesh):
+        return dict(mesh.shape)
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
         raise PiecePlacementError(
-            f"mesh has no {axis!r} axis (axes: {tuple(mesh.axis_names)})")
-    extent = int(mesh.shape[axis])
+            "a DeviceMesh needs mesh_dim_names to be addressed by axis")
+    return dict(zip(names, (int(e) for e in mesh.shape)))
+
+
+def validate_pieces(mesh, n: int, axis: str = MODEL_AXIS) -> int:
+    """Check n coded pieces fit the mesh's worker axis; return its extent."""
+    sizes = axis_sizes(mesh)
+    if axis not in sizes:
+        raise PiecePlacementError(
+            f"mesh has no {axis!r} axis (axes: {tuple(sizes)})")
+    extent = sizes[axis]
     if not 1 <= n <= extent:
         raise PiecePlacementError(
             f"cannot place {n} coded pieces on the {axis!r} axis: extent "
-            f"is {extent} (one piece per lane; shrink n or build the mesh "
-            f"with a larger {axis!r} extent)")
+            f"is {extent} (one piece per lane or axis slice; shrink n or "
+            f"build the mesh with a larger {axis!r} extent)")
     return extent
+
+
+def dp_axes(mesh) -> tuple:
+    """Every mesh axis except the model/worker axis — used for batch/seq."""
+    return tuple(a for a in axis_sizes(mesh) if a != MODEL_AXIS)

@@ -42,7 +42,8 @@ import torch.utils.checkpoint
 from .._device import resolve_device
 from .attention import (blockwise_causal_attention, chunk_attention,
                         decode_attention, flash_causal_attention)
-from .common import lecun_init, rms_norm, rope, rope_at
+from .common import (gather_fsdp, lecun_init, lookup, rms_norm, rope,
+                     rope_at, settle, unshard)
 from .ssm import (SSMDims, MambaState, init_mamba_params, mamba_forward,
                   mamba_step)
 
@@ -197,6 +198,8 @@ def _init_experts(gen, shape, dtype, fan_in: int, dev) -> torch.Tensor:
     (384, 7168, 2048) would be a 22.5 GB temporary per tensor; one
     expert's f32 slab is 1/E of that."""
     w = torch.empty(shape, dtype=dtype, device=dev)
+    if w.device.type == "meta":  # shapes only: nothing is drawn
+        return w
     for e in range(shape[0]):
         w[e] = lecun_init(gen, shape[1:], dtype, fan_in=fan_in, device=dev)
     return w
@@ -407,32 +410,37 @@ def _moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     kept (expert, position) pairs are unique, so this is the reference's
     scatter-add, deterministic on the card), the experts run as three
     batched GEMMs, and each token sums its slots' outputs weighted by the
-    gates in f32."""
+    gates in f32.  Every shape is known before the data: a dropped slot
+    writes to a spare row past the buffer's E * C and reads back a zero,
+    so no op has a data-dependent size (the dry-run runs this on fake
+    tensors)."""
     Bsz, T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     flat = x.reshape(-1, D)
     Tt = flat.shape[0]
     gates, eid, pos, keep, C = moe_route(cfg, p["router"], flat)
-    kept = keep.nonzero()[:, 0]
-    e_k, p_k = eid[kept], pos[kept]
-    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
-    buf[e_k, p_k] = flat[kept // K]
+    slot = eid * C + pos                                     # (Tt*K,)
+    token = torch.arange(Tt * K, device=x.device) // K
+    rows = flat.new_zeros((E * C + 1, D))
+    rows[torch.where(keep, slot, E * C)] = flat[token]
+    buf = rows[:E * C].view(E, C, D)
 
     h = torch.bmm(buf, p["w_in"])                            # (E, C, F)
     g = _act(cfg, torch.bmm(buf, p["w_gate"]))
     out_e = torch.bmm(g * h, p["w_out"])                     # (E, C, D)
 
-    gathered = torch.zeros((Tt * K, D), dtype=out_e.dtype, device=x.device)
-    gathered[kept] = out_e[e_k, p_k]
+    picked = out_e.reshape(E * C, D)[torch.where(keep, slot, 0)]
+    gathered = torch.where(keep[:, None], picked,
+                           torch.zeros((), dtype=out_e.dtype, device=x.device))
     combined = (gathered.reshape(Tt, K, D).float()
                 * gates[..., None]).sum(dim=1)
     return combined.to(x.dtype).reshape(Bsz, T, D)
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    q = torch.einsum("btd,dhp->bthp", x, p["wq"])
-    k = torch.einsum("btd,dkp->btkp", x, p["wk"])
-    v = torch.einsum("btd,dkp->btkp", x, p["wv"])
+    q = settle(torch.einsum("btd,dhp->bthp", x, unshard(p["wq"], 2)))
+    k = settle(torch.einsum("btd,dkp->btkp", x, unshard(p["wk"], 2)))
+    v = settle(torch.einsum("btd,dkp->btkp", x, unshard(p["wv"], 2)))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -454,7 +462,7 @@ def _attn_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     o = _attention(cfg, q, k, v, window)
-    return torch.einsum("bthp,hpd->btd", o, p["wo"])
+    return torch.einsum("bthp,hpd->btd", o, unshard(p["wo"], 1))
 
 
 def _attn_block_full(cfg: ModelConfig, layer: dict, x: torch.Tensor,
@@ -475,18 +483,24 @@ def _attn_block_full(cfg: ModelConfig, layer: dict, x: torch.Tensor,
 def _embed_in(cfg: ModelConfig, params: dict, tokens=None, embeds=None):
     if embeds is not None:
         return embeds.to(cfg.dtype)
-    emb = params["embed"]
+    # the lookup reads the whole table (on the dry-run's DTensors too)
+    emb = unshard(gather_fsdp(params["embed"]), 0)
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
                          device=emb.device)
-    return emb[torch.as_tensor(tokens, device=emb.device).long()] * scale
+    return lookup(emb, torch.as_tensor(tokens, device=emb.device).long()) \
+        * scale
 
 
 def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor
              ) -> torch.Tensor:
-    """Tied-embedding LM head; padding vocab rows are masked to -1e30."""
-    logits = (x @ params["embed"].T).float()
+    """Tied-embedding LM head; padding vocab rows are masked to -1e30 (by
+    a select, which writes the values an in-place fill writes and has a
+    sharding rule for the dry-run's DTensors)."""
+    logits = (x @ gather_fsdp(params["embed"]).T).float()
     if cfg.padded_vocab > cfg.vocab:
-        logits[..., cfg.vocab:] = -1e30
+        real = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+        logits = torch.where(real, logits, torch.full(
+            (), -1e30, dtype=logits.dtype, device=logits.device))
     return logits
 
 
@@ -503,12 +517,14 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, embeds=None,
     win = cfg.sliding_window if window is None else window
 
     def mamba_layer(layer, x):
+        layer = gather_fsdp(layer)
         y, _ = mamba_forward(layer["mamba"], rms_norm(x, layer["norm"]),
                              cfg.ssm_dims, cfg.ssm_chunk)
         return x + y
 
     def attn_layer(layer, x, ffn_key="ffn"):
-        return _attn_block_full(cfg, layer, x, positions, win, ffn_key)
+        return _attn_block_full(cfg, gather_fsdp(layer), x, positions, win,
+                                ffn_key)
 
     if cfg.remat and torch.is_grad_enabled():
         # each layer's activations are recomputed in the backward
@@ -517,11 +533,11 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, embeds=None,
         mamba_layer, attn_layer = remat(mamba_layer), remat(attn_layer)
     for i, layer in enumerate(params["layers"]):
         if cfg.layer_kind(i) == "mamba":
-            x = mamba_layer(layer, x)
+            x = settle(mamba_layer(layer, x))
             if cfg.has_shared_attn(i):
-                x = attn_layer(params["shared_attn"], x)
+                x = settle(attn_layer(params["shared_attn"], x))
         else:
-            x = attn_layer(layer, x, _layer_ffn_key(cfg, i))
+            x = settle(attn_layer(layer, x, _layer_ffn_key(cfg, i)))
     x = rms_norm(x, params["final_norm"])
     return _lm_head(cfg, params, x)
 
@@ -567,21 +583,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 def _attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, kv: dict, pos
                  ) -> tuple[torch.Tensor, dict]:
-    B = x.shape[0]
     q, k, v = _qkv(cfg, p, x)
     q = rope_at(q, pos, cfg.rope_theta)
     k = rope_at(k, pos, cfg.rope_theta)
     S = kv["k"].shape[1]
     slot = (torch.as_tensor(pos, device=x.device) % S).long()
-    if slot.dim():  # (B,) per-lane positions: each lane writes its own slot
-        lanes = torch.arange(B, device=x.device)
-        k_cache = kv["k"].index_put((lanes, slot), k[:, 0].to(kv["k"].dtype))
-        v_cache = kv["v"].index_put((lanes, slot), v[:, 0].to(kv["v"].dtype))
-    else:
-        k_cache = kv["k"].index_copy(1, slot.reshape(1), k.to(kv["k"].dtype))
-        v_cache = kv["v"].index_copy(1, slot.reshape(1), v.to(kv["v"].dtype))
+    # the new entry written at its ring slot (each lane its own slot for
+    # (B,) per-lane positions) as a select over the slots: the values an
+    # indexed copy writes, and an op the dry-run's DTensors can shard
+    slots = torch.arange(S, device=x.device)
+    hit = (slots == slot[:, None]) if slot.dim() else (slots == slot)[None]
+    hit = hit[:, :, None, None]                              # (B|1, S, 1, 1)
+    k_cache = torch.where(hit, k.to(kv["k"].dtype), kv["k"])
+    v_cache = torch.where(hit, v.to(kv["v"].dtype), kv["v"])
     o = decode_attention(q, k_cache, v_cache, pos)
-    out = torch.einsum("bthp,hpd->btd", o, p["wo"])
+    out = torch.einsum("bthp,hpd->btd", o, unshard(p["wo"], 1))
     return out, {"k": k_cache, "v": v_cache}
 
 
@@ -616,16 +632,20 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, token=None,
     new_layers = []
     for i, layer in enumerate(params["layers"]):
         entry = dict(cache["layers"][i])
+        layer = gather_fsdp(layer)
         if cfg.layer_kind(i) == "mamba":
             x, st = _mamba_block_decode(cfg, layer, x, entry, pos)
+            x = settle(x)
             entry.update(st)
             if cfg.has_shared_attn(i):
                 x, entry["shared_kv"] = _attn_block_decode(
-                    cfg, params["shared_attn"], x, entry["shared_kv"], pos,
-                    "ffn")
+                    cfg, gather_fsdp(params["shared_attn"]), x,
+                    entry["shared_kv"], pos, "ffn")
+                x = settle(x)
         else:
             x, entry["kv"] = _attn_block_decode(
                 cfg, layer, x, entry["kv"], pos, _layer_ffn_key(cfg, i))
+            x = settle(x)
         new_layers.append(entry)
     x = rms_norm(x, params["final_norm"])
     logits = _lm_head(cfg, params, x)
@@ -669,17 +689,21 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, embeds=None,
     layers = []
     for i, layer in enumerate(params["layers"]):
         entry = {}
+        layer = gather_fsdp(layer)
         if cfg.layer_kind(i) == "mamba":
             y, st = mamba_forward(layer["mamba"], rms_norm(x, layer["norm"]),
                                   cfg.ssm_dims, cfg.ssm_chunk)
-            x = x + y
+            x = settle(x + y)
             entry["mamba"] = {"conv": st.conv, "ssm": st.ssm}
             if cfg.has_shared_attn(i):
                 x, entry["shared_kv"] = _prefill_attn(
-                    cfg, params["shared_attn"], x, positions, win, S, "ffn")
+                    cfg, gather_fsdp(params["shared_attn"]), x, positions,
+                    win, S, "ffn")
+                x = settle(x)
         else:
             x, entry["kv"] = _prefill_attn(cfg, layer, x, positions, win, S,
                                            _layer_ffn_key(cfg, i))
+            x = settle(x)
         layers.append(entry)
     x = rms_norm(x, params["final_norm"])
     if lens is None:
@@ -701,7 +725,7 @@ def _prefill_attn(cfg, layer, x, positions, win, S, ffn_key):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     o = _attention(cfg, q, k, v, win)
-    h = x + torch.einsum("bthp,hpd->btd", o, p["wo"])
+    h = x + torch.einsum("bthp,hpd->btd", o, unshard(p["wo"], 1))
     y = rms_norm(h, layer["ffn_norm"])
     if ffn_key == "moe":
         out = h + _moe_ffn(cfg, layer["moe"], y)

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..kernels.ssd_chunk import (ssd_chunk_scan, ssd_chunk_scan_bwd,
                                  ssd_chunk_scan_train)
-from .common import lecun_init, rms_norm
+from .common import lecun_init, rms_norm, settle, settle_grad
 
 __all__ = ["SSMDims", "MambaState", "init_mamba_params", "mamba_forward",
            "mamba_step", "init_mamba_state", "ssd_chunked", "ssd_step"]
@@ -192,7 +192,11 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     so no cuDNN algorithm (and no TF32 path) is chosen for it."""
     T = xbc.shape[1]
     W = w.shape[-1]
-    pad = F.pad(xbc.float(), (0, 0, W - 1, 0))
+    xf = xbc.float()
+    # W - 1 leading zero steps (a concatenation: the values a constant pad
+    # gives, and a sharding rule for the dry-run's DTensors on torch 2.11)
+    pad = torch.cat([xf.new_zeros((xf.shape[0], W - 1) + tuple(xf.shape[2:])),
+                     xf], dim=1)
     wf = w.float()
     out = pad[:, 0:T] * wf[:, 0]
     for k in range(1, W):
@@ -205,7 +209,7 @@ def mamba_forward(params: dict, x: torch.Tensor, dims: SSMDims,
     """Full-sequence Mamba2 block. x: (B, T, D) -> (B, T, D), final
     MambaState."""
     Bsz, T, _ = x.shape
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = settle(x @ params["in_proj"])
     z, xbc, dt_raw = _split_in_proj(zxbcdt, dims)
     xbc = F.silu(_causal_conv(xbc, params["conv_w"], params["conv_b"]))
     di, N = dims.d_inner, dims.d_state
@@ -215,6 +219,7 @@ def mamba_forward(params: dict, x: torch.Tensor, dims: SSMDims,
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])
     A = -torch.exp(params["A_log"])
     y, final_ssm = ssd_chunked(xs, dt, A, Bm, Cm, chunk=chunk)
+    y = settle_grad(y)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(Bsz, T, di)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"])
@@ -230,7 +235,7 @@ def mamba_step(params: dict, x: torch.Tensor, state: MambaState,
                dims: SSMDims):
     """One-token step. x: (B, 1, D) -> (B, 1, D), new state."""
     Bsz = x.shape[0]
-    zxbcdt = x[:, 0] @ params["in_proj"]  # (B, in_proj_dim)
+    zxbcdt = settle(x[:, 0] @ params["in_proj"])  # (B, in_proj_dim)
     z, xbc_new, dt_raw = _split_in_proj(zxbcdt, dims)
     # causal conv over [conv_state, new]: take the last output position
     hist = torch.cat([state.conv, xbc_new[..., None]], dim=-1)  # (B, C, W)

@@ -55,7 +55,10 @@ def test_port_files_are_found():
                  "src/repro_torch/data/pipeline.py",
                  "src/repro_torch/checkpoint/store.py",
                  "src/repro_torch/launch/steps.py",
-                 "src/repro_torch/launch/train.py"):
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/sharding.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/hlo_analysis.py"):
         assert must in names
     assert (PORT / "kernels" / "csrc" / "skinny_gemm.cu").is_file()
     assert (PORT / "kernels" / "csrc" / "conv2d.cu").is_file()
@@ -86,7 +89,9 @@ def test_no_import_of_triton_at_module_level(path):
 
 def test_importing_the_port_leaves_jax_out():
     """In a fresh interpreter (this one has imported jax for the parity
-    tests): import every module of the port, then look at sys.modules."""
+    tests): import every module of the port, then look at sys.modules; and
+    no module made a process group (the meshes and the dry-run make theirs
+    when called)."""
     mods = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         for p in PORT.rglob("*.py"))
@@ -99,6 +104,8 @@ def test_importing_the_port_leaves_jax_out():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN | {'triton'})!r})\n"
         "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'a process group at import'\n"
         "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
