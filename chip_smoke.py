@@ -9,7 +9,8 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (into ``build/``), and then, phase by phase, each printing JSON lines:
 
 1. ``device``    — card name and power limit (``nvidia-smi``), torch and CUDA
-                   versions, kernel build seconds.
+                   versions, kernel build seconds, and TF32 ``mma.sync``'s
+                   rate and latency on this card (``csrc/mma_probe.cu``).
 2. ``kernels``   — every ported kernel against its plain PyTorch version on
                    the card, at the shapes the VGG16 and Zamba2 paths give
                    it (every VGG16 piece at B = 1 and 4, remainders, local
@@ -39,11 +40,14 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    coding variant that can take it, on the whole and on a
                    column block, bit for bit the chosen variant's, and is
                    timed beside a device copy of the same bytes.  The SSD
-                   backward (``ssd_chunk_scan_bwd``, four reversed passes)
-                   at the Zamba2 train shape (B 4, T 512), with h0 and the
-                   final state's gradient, a ragged chunk, Mamba2-2.7B's
-                   heads, bf16 and odd widths, and each reversed pass alone,
-                   against its plain version and f64, two runs bit for bit.
+                   backward (``ssd_chunk_scan_bwd``, four reversed passes
+                   in 3xTF32, the heads' shares of dG, dB and dC summed on
+                   chip in groups of ``bwd_heads``) at the Zamba2 train
+                   shape (B 4, T 512), with h0 and the final state's
+                   gradient, a ragged chunk, Mamba2-2.7B's heads, bf16 and
+                   odd widths, and each reversed pass alone, against its
+                   plain version and f64, two runs bit for bit, each with
+                   its bound at the f32 SIMT rate and at the 3xTF32 rate.
 3. ``coded_ops`` — ``coded_conv2d`` and ``coded_matmul`` through a
                    ``CodedExecutor`` with one dead worker and one straggler,
                    against the uncoded result; the same ops on a
@@ -168,8 +172,9 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    wall per op (the ranks time-share the card).
 12. ``dryrun``   — on the CPU, in a spawned process started before the
                    first phase and read at the end: ``run_one`` of
-                   ``repro_torch.launch.dryrun`` for gemma-2b x decode_32k
-                   and zamba2-1.2b x train_4k on the single-pod mesh (fake
+                   ``repro_torch.launch.dryrun`` for gemma-2b x decode_32k,
+                   zamba2-1.2b x train_4k and zamba2-1.2b x decode_32k on
+                   the single-pod mesh (fake
                    process group, fake DTensors), under this machine's
                    torch; and the ``train`` phase's own step counted on a
                    1 x 1 mesh, with its share of the f32 peak and of HBM
@@ -185,10 +190,11 @@ only printed when every phase ran; ``zamba2_mesh``, ``adaptive`` and
 ``serving`` need ``zamba2``; ``families``, ``train``, ``sharded`` and
 ``dryrun`` stand alone, ``dryrun`` giving the train step's share only when
 ``train`` ran).
-``--time-kernels CHECKOUT`` only times the skinny GEMM, the conv and the
-SSD scan of the port in another checkout (a parent commit unpacked beside
-this one) at this script's f32 cases, so that two versions can be held
-against each other in one run on one card.
+``--time-kernels CHECKOUT`` only times the skinny GEMM, the conv, the SSD
+scan and the SSD backward (whole, and each of its kernels from a profile)
+of the port in another checkout (a parent commit unpacked beside this one)
+at this script's f32 cases, so that two versions can be held against each
+other in one run on one card.
 """
 from __future__ import annotations
 
@@ -296,6 +302,43 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0].strip()
 
 
+def mma_probe(torch) -> dict:
+    """TF32 ``mma.sync.m16n8k8`` on this card (``csrc/mma_probe.cu``): the
+    rate of 16 warps an SM, 4 independent products each, and one
+    product's latency (one warp a sub-partition, one dependent chain),
+    from CUDA events around a warmed-up launch."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.load("mma_probe")
+    lib.mma_tf32_probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    lib.mma_tf32_probe.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(sms * 16 * 32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def ms(warps, chains, iters):
+        require(lib.mma_tf32_probe(out.data_ptr(), sms, warps, chains, 16,
+                                   stream) == 0, "mma probe launch")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        lib.mma_tf32_probe(out.data_ptr(), sms, warps, chains, iters, stream)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    iters = 4096
+    rate = ms(16, 4, iters)
+    chain = ms(4, 1, iters)
+    return {"tf32_mma_sync_tflops": sms * 16 * 4 * iters * 2048
+            / (rate * 1e-3) / 1e12,
+            "tf32_mma_sync_latency_ns": chain * 1e6 / iters,
+            "sms": sms}
+
+
 def phase_device(torch) -> dict:
     from repro_torch.kernels import _build
 
@@ -313,7 +356,7 @@ def phase_device(torch) -> dict:
            "built": info["built"], "libs": info["libs"],
            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-           "ptxas": regs}
+           "mma_probe": mma_probe(torch), "ptxas": regs}
     emit(out)
     return out
 
@@ -1122,14 +1165,24 @@ def ssd_saved_plain(torch, x, dt, A, Bm, Cm, h0, chunk):
     return G, Hin, ce
 
 
+def ssd_bwd_groups(B, T, H, chunk) -> int:
+    """The head groups of the backward's out and states passes: each
+    hands on one partial sum of dG, dC or dB per (batch, chunk)."""
+    from repro_torch.kernels.ssd_chunk import bwd_heads
+
+    return -(-H // bwd_heads(B, T, H, chunk))
+
+
 def ssd_bwd_work(B, T, H, P, N, chunk) -> dict:
     """FLOPs of each reversed pass over the rows the sequence has: out_bwd
     the causal dy x^T and M^T dy (L (L + 1) / 2 x P each), the incoming
     state's dC and dHin (L x P x N each) and its row term of d(cum), C . dC
     (L x N); state_pass_bwd two per state
     element and chunk; states_bwd x dS, B dS^T (L x P x N each) and dw;
-    cb_bwd the heads' dG summed and dG B, dG^T C (causal, x N)."""
+    cb_bwd the groups' dG, dC and dB added and dG B, dG^T C (causal, x
+    N)."""
     c = -(-T // chunk)
+    ng = ssd_bwd_groups(B, T, H, chunk)
     w = dict.fromkeys(("out_bwd", "state_pass_bwd", "states_bwd", "cb_bwd"),
                       0)
     for t0 in range(0, T, chunk):
@@ -1137,7 +1190,7 @@ def ssd_bwd_work(B, T, H, P, N, chunk) -> dict:
         tri = n * (n + 1) // 2
         w["out_bwd"] += H * (2 * tri * P + 2 * n * P * N + n * N)
         w["states_bwd"] += H * (2 * n * P * N + n * N)
-        w["cb_bwd"] += H * tri / 2 + 2 * tri * N
+        w["cb_bwd"] += ng * (tri / 2 + n * N) + 2 * tri * N
     w["state_pass_bwd"] = c * H * P * N
     return {k: 2.0 * B * v for k, v in w.items()}
 
@@ -1145,14 +1198,16 @@ def ssd_bwd_work(B, T, H, P, N, chunk) -> dict:
 def ssd_bwd_bytes(B, T, H, P, N, chunk, item, h0) -> dict:
     """Bytes of each reversed pass and of the whole backward: each input
     read once and each output written once (f32 but x, Bm, Cm, which are
-    ``item`` bytes)."""
+    ``item`` bytes); the passes hand on one partial sum of dG, dC and dB
+    per head group."""
     c = -(-T // chunk)
     L = chunk
+    ng = ssd_bwd_groups(B, T, H, chunk)
     x, bc = B * T * H * P * item, B * T * N * item
     f = lambda *n: 4 * math.prod(n)
     dy, dt, G = f(B, T, H, P), f(B, T, H), f(B, c, L, L)
     st, row = f(B, c, H, P, N), f(B, c, H, L)
-    dGh, dBC = f(B, c, H, L, L), f(B, c, H, L, N)
+    dGh, dBC = f(B, c, ng, L, L), f(B, c, ng, L, N)
     h = f(B, H, P, N)
     whole = (x + 2 * bc + dt + G + st + f(B, c, H) + dy + (2 * h if h0 else 0)
              + f(B, T, H, P) + dt + f(H) + 2 * f(B, T, N) + (h if h0 else 0))
@@ -1223,6 +1278,7 @@ def check_ssd_bwd(torch, timer, gen, name, B, T, H, P, N, chunk, h0, dtype,
                             h0)["whole"]
     bound_ms, bound_by = bound(n_bytes, flops, "float32")
     return {"case": name, "kernel": "ssd_chunk_bwd",
+            "bound_3xtf32_ms": bound_3xtf32(n_bytes, flops),
             "shape": {"B": B, "T": T, "H": H, "P": P, "N": N, "chunk": chunk,
                       "h0": h0},
             "dtype": str(dtype).replace("torch.", ""), "headline": headline,
@@ -1249,23 +1305,24 @@ def check_ssd_bwd_passes(torch, timer, gen) -> list[dict]:
     dy = _rand(torch, gen, (B, T, H, P), torch.float32)
     dhT = _rand(torch, gen, (B, H, P, N), torch.float32)
     G, Hin, ce = ssd_saved_plain(torch, x, dt, A, Bm, Cm, h, chunk)
+    # the plain chain, the heads in the kernels' groups
     o = K.ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk)
-    dx_o, dGh, dCh, dHin, dcum_o, ddt_o = o
+    dx_o, dG_g, dC_g, dHin, dcum_o, ddt_o = o
     dS, dce, _ = K.ssd_state_pass_bwd_plain(Hin, ce, dHin, dhT)
-    _, dBh, _, dA_part = K.ssd_states_bwd_plain(x, dt, A, Bm, dS, dcum_o,
-                                                ddt_o, dce, dx_o, chunk)
+    _, dB_g, _, dA_part = K.ssd_states_bwd_plain(x, dt, A, Bm, dS, dcum_o,
+                                                 ddt_o, dce, dx_o, chunk)
     d = lambda *ts: [t.double() for t in ts]
     passes = {
         "out_bwd": ((x, dt, A, Cm, G, Hin, dy, chunk), K.ssd_out_bwd,
                     K.ssd_out_bwd_plain,
-                    ("dx_o", "dGh", "dCh", "dHin", "dcum_o", "ddt_o")),
+                    ("dx_o", "dG_g", "dC_g", "dHin", "dcum_o", "ddt_o")),
         "state_pass_bwd": ((Hin, ce, dHin, dhT), K.ssd_state_pass_bwd,
                            K.ssd_state_pass_bwd_plain,
                            ("dS", "dce", "dh0")),
         "states_bwd": ((x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o, chunk),
                        K.ssd_states_bwd, K.ssd_states_bwd_plain,
-                       ("dx", "dBh", "ddt", "dA_part")),
-        "cb_bwd": ((Bm, Cm, dGh, dBh, dCh, dA_part, chunk), K.ssd_cb_bwd,
+                       ("dx", "dB_g", "ddt", "dA_part")),
+        "cb_bwd": ((Bm, Cm, dG_g, dB_g, dC_g, dA_part, chunk), K.ssd_cb_bwd,
                    K.ssd_cb_bwd_plain, ("dB", "dC", "dA")),
     }
     work = ssd_bwd_work(B, T, H, P, N, chunk)
@@ -1288,6 +1345,7 @@ def check_ssd_bwd_passes(torch, timer, gen) -> list[dict]:
             "case": f"zamba2 train B=4 T=512, h0: pass {name}",
             "kernel": f"ssd_chunk.{name}", "dtype": "float32",
             "headline": True,
+            "bound_3xtf32_ms": bound_3xtf32(nbytes[name], work[name]),
             "plan": {"grid": list(p.grid), "threads": p.threads,
                      "smem": p.smem, "blocks_per_sm": p.blocks_per_sm},
             "max_abs_err": max(v for k, v in errs.items()
@@ -1329,18 +1387,49 @@ def phase_kernels(torch) -> list[dict]:
     return cases
 
 
+def kernel_ms(torch, timer, fn, calls: int = 7) -> dict:
+    """The median device ms of each SSD kernel that ``fn`` launches, from
+    a profile of ``calls`` calls, the L2 overwritten before each (as
+    ``Timer`` times them)."""
+    import collections
+    import re
+    import statistics
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    fn()
+    torch.cuda.synchronize()
+    with tprof(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ns = collections.defaultdict(list)
+    for ev in prof.profiler.kineto_results.events():
+        m = re.search(r"(ssd_\w+_kernel)", ev.name())
+        if m and ev.device_type() == DeviceType.CUDA \
+                and not ev.is_hidden_event():
+            ns[m.group(1)].append(ev.duration_ns())
+    require(bool(ns), "no SSD kernel rows in the profile")
+    return {k: statistics.median(v) / 1e6 for k, v in ns.items()}
+
+
 def time_kernels(torch, checkout: str) -> None:
-    """Only time ``skinny_gemm``, ``conv2d`` and ``ssd_chunk_scan`` of the
-    ``repro_torch`` under ``checkout/src`` at this script's f32 cases
-    (the SSD's whole-sequence ones), as the ``kernels`` phase
-    times them, and print one JSON line: run it on two checkouts in one
+    """Only time ``skinny_gemm``, ``conv2d``, ``ssd_chunk_scan`` and
+    ``ssd_chunk_scan_bwd`` of the ``repro_torch`` under ``checkout/src`` at
+    this script's f32 cases (the SSD's whole-sequence ones), as the
+    ``kernels`` phase times them (the backward also kernel by kernel, from
+    a profile), and print one JSON line: run it on two checkouts in one
     call (parent, change, change, parent) to hold two versions of the
     kernels against each other on one card.  The wrappers' signatures are
     the same in every version of the port."""
     import repro_torch
     from repro_torch.kernels.conv2d import conv2d
     from repro_torch.kernels.skinny_gemm import skinny_gemm
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
+                                               ssd_chunk_scan_bwd,
+                                               ssd_chunk_scan_train)
 
     require(os.path.realpath(repro_torch.__file__).startswith(
         os.path.realpath(checkout)), f"repro_torch not from {checkout}")
@@ -1371,6 +1460,21 @@ def time_kernels(torch, checkout: str) -> None:
                                          dtype)
         rows.append({"case": name, "kernel": "ssd_chunk", "ms": timer.ms(
             lambda: ssd_chunk_scan(x, dt, A, Bm, Cm, h, chunk))})
+    for name, B, T, H, P, N, chunk, h0, dtype, _ in ssd_bwd_cases(torch):
+        if dtype != torch.float32:
+            continue
+        x, dt, A, Bm, Cm, h = ssd_inputs(torch, gen, B, T, H, P, N, h0,
+                                         dtype)
+        dy = _rand(torch, gen, (B, T, H, P), torch.float32)
+        dhT = _rand(torch, gen, (B, H, P, N), torch.float32) if h0 else None
+        _, _, saved = ssd_chunk_scan_train(x, dt, A, Bm, Cm, h, chunk)
+
+        def run():
+            return ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, saved, dy, dhT,
+                                      chunk, want_dh0=h0)
+        rows.append({"case": name, "kernel": "ssd_chunk_bwd",
+                     "ms": timer.ms(run),
+                     "kernels_ms": kernel_ms(torch, timer, run)})
     emit({"phase": "time_kernels", "source": os.path.dirname(
         repro_torch.__file__), "nvidia_smi": nvidia_smi_line(),
           "cases": rows})
@@ -4772,7 +4876,8 @@ def phase_sharded(torch) -> dict:
 # phase 12: the dry-run, on the CPU while the card works
 # ---------------------------------------------------------------------------
 
-DRYRUN_COMBOS = (("gemma-2b", "decode_32k"), ("zamba2-1.2b", "train_4k"))
+DRYRUN_COMBOS = (("gemma-2b", "decode_32k"), ("zamba2-1.2b", "train_4k"),
+                 ("zamba2-1.2b", "decode_32k"))
 DRYRUN_JOIN_S = 900.0
 
 

@@ -10,33 +10,57 @@
 // total decay (cum_end); the running sum of dA inside a chunk is recomputed
 // here by the forward's own warp scan, so it is the forward's to the bit.
 //
-//   (4') out_bwd         grid (H, c, B): dy, x, G, C, Hin of one (chunk,
-//                        head) -> the intra term's dx, this head's share of
-//                        dG, dC and the incoming state's gradient dHin, and
-//                        the row terms of d(cum) and d(dt)
+//   (4') out_bwd         grid (groups, c, B): a block walks `heads`
+//                        consecutive heads of one (chunk, batch): dy, x,
+//                        C, Hin of each -> the intra term's dx, dHin, the
+//                        row terms of d(cum) and d(dt); dG and the
+//                        incoming state's dC are summed over the block's
+//                        heads on chip and written once per block
 //   (3') state_pass_bwd  grid (H, B): the one walk over the chunks, last to
 //                        first: dS per chunk, d(cum_end) through the carried
 //                        state, dh0
-//   (2') states_bwd      grid (H, c, B): dS -> dx (added to the intra
-//                        term's), this head's share of dB, and d(cum)
-//                        gathered into ddt and the chunk's share of dA by a
-//                        reverse running sum over the chunk's rows
+//   (2') states_bwd      grid (groups, c, B): dS -> dx (added to the intra
+//                        term's), d(cum) gathered into ddt and the chunk's
+//                        share of dA by a reverse warp scan over the rows;
+//                        dB's share summed over the block's heads on chip
 //   (1') cb_bwd          grid (2 ceil(L / 16), c, B): 16 rows of dC or of dB
-//                        per block, the heads' shares summed, plus dG's
-//                        terms; block (0, 0, 0) also sums dA over batch and
-//                        chunks
+//                        per block: the groups' dG summed, dG B or dG^T C,
+//                        plus the groups' dC or dB shares; block (0, 0, 0)
+//                        also sums dA over batch and chunks
+//
+// Bound: the products and the bytes about equally at the model's shape
+// (3xTF32 at 495/3 TFLOP/s and x, dy, Hin, dS, dx at 3.35 TB/s: ~0.04 ms
+// each; each head's share of the sums never reaches device memory).
+// Every product runs on the tensor cores as 3xTF32 (ssd_common.cuh: hi =
+// tf32(v), lo = v - hi, lo*hi + hi*lo + hi*hi accumulated in f32 by
+// mma.sync.m16n8k8): dy x^T and M^T dy (causal L x L x P), dHin =
+// (e^cum dy)^T C and dC's share (e^cum dy) Hin, x dS and B dS^T
+// (L x P x N), dG B and dG^T C (causal L x L x N).  One TF32 mma.sync has
+// ~32 cycles of latency against ~7 of issue interval and a warp issues in
+// order, so a product over several tiles runs each of the three partial
+// products over all of them before the next (mma_part), and out_bwd and
+// states_bwd run 16 warps.  The heads' shares of dG never reach device
+// memory: a warp keeps the same dG tiles in registers for every head of
+// its block, and dC's and dB's shares go to a shared-memory accumulator,
+// so only one partial per block (`groups` per chunk) is written.
+// Operands are staged by cp.async with row strides
+// that keep every fragment read conflict-free: a fragment whose
+// contraction runs along the stored rows takes k in the order (2t, 2t + 1)
+// (one float2 read, stride 8 mod 16), one whose contraction runs down the
+// stored columns k in the order (t, t + 4) (stride 8 mod 16) or (2t, 2t + 1)
+// (stride 4 mod 8); both operands of a product use the same order.
 //
 // Determinism: every sum is taken in a fixed order by a fixed thread (the
-// heads' shares in head order, the block reductions by a fixed shuffle
-// pattern and then warp by warp), with no atomics, so two runs give the
-// same bits whatever the scheduling.
+// heads in head order, the groups in group order, the shuffle reductions
+// by a fixed pattern, the warps' shares in warp order), with no atomics,
+// so two runs give the same bits whatever the scheduling.
 //
-// Arithmetic: SIMT f32, the products staged in shared memory with odd row
-// strides and computed in register tiles of 4 x 4 outputs a thread
-// (tile4x4), so that a warp's reads fall in distinct banks and a
-// multiply-add costs half a shared-memory read.  bf16 x / Bm / Cm
-// are widened on load; every gradient is written in f32 (the caller casts).
-// Limits as the forward's: L <= 128, P <= 64, N <= 128.
+// The decay exp(cum_l - cum_s) is formed inside the chunk for each (l, s),
+// as the forward's out pass forms its decayed G, never as exp(cum_l) times
+// exp(-cum_s), whose second factor overflows for heads that decay fast.
+// bf16 x / Bm / Cm are widened on load; every gradient is written in f32
+// (the caller casts).  Limits as the forward's: L <= 128, P <= 64,
+// N <= 128.
 //
 // x, dt, Bm and Cm are read through the forward's strides (the same dims
 // array); dy, G, Hin, cum_end and every output are contiguous f32.  Every
@@ -49,12 +73,19 @@
 
 #include <atomic>
 
+#include "ssd_common.cuh"  // 3xTF32, strides, staging, chunk_scan
+
 namespace {
 
-constexpr int LMAX = 128, PMAX = 64, NMAX = 128;
-constexpr int WIDE = 256;  // every pass: 8 warps
+using namespace ssd;
+using sgemm::cp_commit;
+using sgemm::cp_wait;
+
+constexpr int WIDE = 256;  // state_pass_bwd, cb_bwd: 8 warps
+constexpr int BIG = 512;   // out_bwd, states_bwd: 16 warps
 constexpr int RT = 16;     // cb_bwd: rows of dB or dC per block
 constexpr int KMAX = (PMAX * NMAX + WIDE - 1) / WIDE;  // state elements/thread
+constexpr int NSMALL = 17;  // out_bwd: rows of LMAX floats after the tiles
 
 struct Dims {
   int B, T, H, P, N, L, c;
@@ -62,7 +93,7 @@ struct Dims {
   long long sdb, sdt, sdh;  // dt strides
   long long sbb, sbt;       // Bm strides (n stride 1)
   long long scb, sct;       // Cm strides
-  int vec;                  // unused here (the forward's copy widths)
+  int vec;                  // VEC_*: those rows load as 4-element quads
 };
 
 bool parse(const long long* v, Dims& d) {
@@ -77,64 +108,135 @@ bool parse(const long long* v, Dims& d) {
          d.c <= 65535 && d.H <= 65535 && d.c == (d.T + d.L - 1) / d.L;
 }
 
-// Shared memory (bytes) of each pass; kernels/ssd_chunk.py::ssd_bwd_plan
-// holds the same formulas.
+// Shared memory (floats, then bytes) of each pass;
+// kernels/ssd_chunk.py::ssd_bwd_plan holds the same formulas.
+//   out_bwd:    X (x, then Hin), U (G turned into M, then C), dy, the dC
+//               accumulator and NSMALL rows of LMAX
+//   states_bwd: x, B, dS, the dB accumulator and 8 rows of LMAX
+//   cb_bwd:     B or C, and the summed dG rows or columns
+__host__ __device__ inline int out_bwd_x(int L, int P, int N) {
+  const int a = up(L, 16) * stride_b(P), h = up(P, 8) * stride_a(N);
+  return a > h ? a : h;
+}
+__host__ __device__ inline int out_bwd_u(int L, int P, int N) {
+  return up(L, 16) * (L > N ? stride_b(L) : stride_b(N));
+}
 inline int smem_out_bwd(int L, int P, int N) {
-  const int a = 2 * L * (L + 1), b = (L + P) * (N + 1);
-  return 4 * (2 * L * (P + 1) + (a > b ? a : b) + 5 * LMAX + 16 * LMAX);
+  const int l16 = up(L, 16);
+  return 4 * (out_bwd_x(L, P, N) + out_bwd_u(L, P, N) + l16 * stride_b(P) +
+              l16 * stride_b(N) + NSMALL * LMAX);
 }
 inline int smem_states_bwd(int L, int P, int N) {
-  return 4 * (L * (P + 1) + 2 * L * (N + 1) + P * (N + 1) + 6 * LMAX);
+  const int l16 = up(L, 16), sb = stride_b(N);
+  return 4 * (l16 * stride_a(P) + 2 * l16 * sb + up(P, 8) * sb + 8 * LMAX);
 }
 inline int smem_cb_bwd(int L, int P, int N) {
-  return 4 * (L * (N + 1) + L * RT);
+  const int l16 = up(L, 16), r = RT * stride_a(L), c = l16 * stride_b(RT);
+  return 4 * (l16 * stride_b(N) + (r > c ? r : c));
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// ---- fragments ------------------------------------------------------------------
+// g = lane / 4, t = lane % 4.  A fragment (16 x 8 at rows m0, k0), B
+// fragment (8 x 8 at k0, columns n0), each split into its TF32 high and low
+// parts.  "rows": the contraction runs along X's rows; "cols": down X's
+// columns.  The _p forms take k in the order (2t, 2t + 1).
+
+__device__ __forceinline__ void split4(float a0, float a1, float a2, float a3,
+                                       uint32_t (&h)[4], uint32_t (&l)[4]) {
+  split(a0, h[0], l[0]);
+  split(a1, h[1], l[1]);
+  split(a2, h[2], l[2]);
+  split(a3, h[3], l[3]);
+}
+__device__ __forceinline__ void split2(float b0, float b1, uint32_t (&h)[2],
+                                       uint32_t (&l)[2]) {
+  split(b0, h[0], l[0]);
+  split(b1, h[1], l[1]);
+}
+// A(m, k) = X[m S + k], S = 4 mod 8
+__device__ __forceinline__ void a_rows(const float* X, int S, int m0, int k0,
+                                       uint32_t (&h)[4], uint32_t (&l)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = X + (m0 + g) * S + k0 + t;
+  split4(p[0], p[8 * S], p[4], p[8 * S + 4], h, l);
+}
+// A(m, k) = X[m S + k], S = 8 mod 16, k in the order (2t, 2t + 1)
+__device__ __forceinline__ void a_rows_p(const float* X, int S, int m0, int k0,
+                                         uint32_t (&h)[4], uint32_t (&l)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = X + (m0 + g) * S + k0 + 2 * t;
+  const float2 u = *reinterpret_cast<const float2*>(p);
+  const float2 w = *reinterpret_cast<const float2*>(p + 8 * S);
+  split4(u.x, w.x, u.y, w.y, h, l);
+}
+// A(m, k) = X[k S + m], S = 8 mod 16
+__device__ __forceinline__ void a_cols(const float* X, int S, int m0, int k0,
+                                       uint32_t (&h)[4], uint32_t (&l)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = X + (k0 + t) * S + m0 + g;
+  split4(p[0], p[8], p[4 * S], p[4 * S + 8], h, l);
+}
+// B(k, n) = X[k S + n], S = 8 mod 16
+__device__ __forceinline__ void b_cols(const float* X, int S, int n0, int k0,
+                                       uint32_t (&h)[2], uint32_t (&l)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = X + (k0 + t) * S + n0 + g;
+  split2(p[0], p[4 * S], h, l);
+}
+// B(k, n) = X[k S + n], S = 4 mod 8, k in the order (2t, 2t + 1)
+__device__ __forceinline__ void b_cols_p(const float* X, int S, int n0,
+                                         int k0, uint32_t (&h)[2],
+                                         uint32_t (&l)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = X + (k0 + 2 * t) * S + n0 + g;
+  split2(p[0], p[S], h, l);
+}
+// B(k, n) = X[n S + k], S = 8 mod 16, k in the order (2t, 2t + 1)
+__device__ __forceinline__ void b_rows_p(const float* X, int S, int n0,
+                                         int k0, uint32_t (&h)[2],
+                                         uint32_t (&l)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float2 u =
+      *reinterpret_cast<const float2*>(X + (n0 + g) * S + k0 + 2 * t);
+  split2(u.x, u.y, h, l);
+}
+// Part `pass` of d += a b in 3xTF32: 0 and 1 the two small cross terms,
+// 2 the high parts' product.  A product over several tiles runs pass 0 on
+// every tile, then pass 1, then pass 2: consecutive tensor-core
+// instructions then touch different accumulators, and a warp, which issues
+// in order, does not wait out one instruction's latency (~32 cycles, 5x
+// its issue interval) before the next.
+__device__ __forceinline__ void mma_part(float (&d)[4], int pass,
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const uint32_t (&bh)[2],
+                                         const uint32_t (&bl)[2]) {
+  if (pass == 0)
+    mma_tf32(d, al, bh[0], bh[1]);
+  else if (pass == 1)
+    mma_tf32(d, ah, bl[0], bl[1]);
+  else
+    mma_tf32(d, ah, bh[0], bh[1]);
+}
+// acc[j] += a b[j] for j < n, the three passes over all the tiles
+template <int NT>
+__device__ __forceinline__ void mma3_tiles(float (&acc)[NT][4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[NT][2],
+                                           const uint32_t (&bl)[NT][2],
+                                           int n) {
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (j < n) mma_part(acc[j], pass, ah, al, bh[j], bl[j]);
 }
 
-// The forward's running sum of dA over a chunk (ssd_chunk.cu::chunk_scan),
-// by warp 0: lane i owns rows 4i..4i+3.  Writes dts[l] (dt, 0 past len)
-// and cum[l] for every l < LMAX.
-__device__ __forceinline__ void chunk_scan(const float* dtg, long long sdt,
-                                           int len, float a, float* cum,
-                                           float* dts) {
-  const int lane = threadIdx.x & 31;
-  float v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = 4 * lane + i;
-    const float d = l < len ? dtg[l * sdt] : 0.f;
-    dts[l] = d;
-    v[i] = d * a;
-  }
-  v[1] += v[0];
-  v[2] += v[1];
-  v[3] += v[2];
-  float incl = v[3];
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float n = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += n;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) cum[4 * lane + i] = excl + v[i];
-}
-
-// Rows [0, len) of a strided (rows, cols) operand into shared memory with
-// row stride ld; rows [len, L) are zero.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      long long srow, int len, int L,
-                                      int cols) {
-  for (int e = threadIdx.x; e < L * cols; e += WIDE) {
-    const int r = e / cols, k = e - r * cols;
-    dst[r * ld + k] = r < len ? to_f32(src[r * srow + k]) : 0.f;
-  }
+// v summed over the four lanes of a fragment row (the lanes of one g)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Sum of v over the block, the same bits every run: a butterfly inside
@@ -152,222 +254,329 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
-// ---- register tiles ------------------------------------------------------------
+// ---- (4') out_bwd --------------------------------------------------------------
 
-// A 64 x 64 block of a product from shared memory, 4 x 4 outputs a thread:
-// thread (ti, tj) = (t / 16, t % 16) owns rows r0 + 16 i and columns
-// c0 + 16 j (i, j < 4), r0 = row block + ti, c0 = column block + tj, and
-//   acc[i][j] = sum_{k0 <= k < k1} A(r0 + 16 i, k) B(c0 + 16 j, k),
-// A(r, k) = A[r ar + k ak] (0 for r >= nr), B(c, k) = B[c br + k bk] (0
-// for c >= nc), summed in ascending k.  Interleaved rows and columns keep
-// the reads of a warp (two rows, sixteen columns) in distinct banks for
-// the unit and odd strides used here; each k costs 8 reads for 16
-// multiply-adds.
-__device__ __forceinline__ void tile4x4(float (&acc)[4][4], const float* A,
-                                        int ar, int ak, int nr, const float* B,
-                                        int br, int bk, int nc, int r0, int c0,
-                                        int k0, int k1) {
+// One 16 x 8 tile of dM = dy x^T at rows m0 (l), columns n0 (s), m-tile mi:
+// its share of dG into gacc, G turned into M = G o E o dt_s in place in Ms,
+// Z = R o dt_s summed into this thread's rows (zrow), and R's column sums
+// over the tile's 16 rows into colr[mi], with E = exp(cum_l - cum_s),
+// R = dM o G o E, zero above the diagonal and past L.  Every load first,
+// then selects: no branch between a load and its use.
+__device__ __forceinline__ void dm_tile(const float (&acc)[4],
+                                        float (&gacc)[4], int m0, int n0,
+                                        int mi, int L, const float* cum,
+                                        const float* dts, float* Ms, int SM,
+                                        float* colr, float (&zrow)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int l0 = m0 + g, s0 = n0 + 2 * t;
+  const float cl[2] = {cum[l0], cum[l0 + 8]};
+  const float cs[2] = {cum[s0], cum[s0 + 1]}, ds[2] = {dts[s0], dts[s0 + 1]};
+  float2* p0 = reinterpret_cast<float2*>(Ms + l0 * SM + s0);
+  float2* p1 = reinterpret_cast<float2*>(Ms + (l0 + 8) * SM + s0);
+  const float2 g0 = *p0, g1 = *p1;
+  const float gv[4] = {g0.x, g0.y, g1.x, g1.y};
+  float m[4], r[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    const int l = l0 + 8 * (i >> 1), s = s0 + (i & 1);
+    const float e = expf(cl[i >> 1] - cs[i & 1]);
+    const float E = s <= l && l < L ? e : 0.f;
+    gacc[i] += acc[i] * E * ds[i & 1];
+    m[i] = gv[i] * E * ds[i & 1];
+    r[i] = acc[i] * gv[i] * E;
+    zrow[i >> 1] += r[i] * ds[i & 1];
+  }
+  *p0 = make_float2(m[0], m[1]);
+  *p1 = make_float2(m[2], m[3]);
+  float cr[2] = {r[0] + r[2], r[1] + r[3]};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k = k0; k < k1; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + 16 * i;
-      a[i] = r < nr ? A[r * ar + k * ak] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 16 * j;
-      b[j] = c < nc ? B[c * br + k * bk] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  for (int o = 4; o < 32; o <<= 1) {
+    cr[0] += __shfl_xor_sync(0xffffffffu, cr[0], o);
+    cr[1] += __shfl_xor_sync(0xffffffffu, cr[1], o);
+  }
+  if (g == 0) {
+    colr[mi * LMAX + s0] = cr[0];
+    colr[mi * LMAX + s0 + 1] = cr[1];
   }
 }
 
-constexpr int TB = 64;  // rows and columns of a register-tiled block
+// One 16 x 8 tile of an (L, L) f32 matrix at rows m0, columns n0, rows
+// and columns past L dropped.
+__device__ __forceinline__ void put_tile(float* out, const float (&v)[4],
+                                         int m0, int n0, int L) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 4; i += 2) {
+    const int l = m0 + g + 4 * i, s = n0 + 2 * t;
+    if (l < L && s < L)
+      store2(out + l * L + s, v[i], v[i + 1], s + 1 < L, L % 2 == 0);
+  }
+}
 
-// ---- (4') out_bwd --------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(WIDE)
+// 16 warps; warp w = 4 r + a.  dM's causal tiles: m-tiles a (lo) and 7 - a
+// (hi), columns 8 (r + 4q), q < 2 (lo) and q < 4 (hi): 4.5 tiles a warp at
+// L = 128, the same every head, so the heads' dG stays in the warp's
+// registers.  Tiles past the diagonal or past L are multiplied (on clamped
+// operands) and never used, so the product has no branch.  dx = M^T dy:
+// s-tiles {a, 7 - a}, p-tiles 2r, 2r + 1.  dHin: p-tile a, a quarter r of
+// the n-tiles.  dC's share: l-tile w % 8, a half w / 8 of the n-tiles.
+// NT: n-tiles of N (8 or 16).
+template <typename T, int NT>
+__global__ void __launch_bounds__(BIG, 1)
 ssd_out_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ A, const T* __restrict__ Cm,
                    const float* __restrict__ G, const float* __restrict__ Hin,
                    const float* __restrict__ dy, float* __restrict__ dx,
-                   float* __restrict__ dGh, float* __restrict__ dCh,
+                   float* __restrict__ dGp, float* __restrict__ dCp,
                    float* __restrict__ dHin, float* __restrict__ dcum,
-                   float* __restrict__ ddt, const Dims d) {
+                   float* __restrict__ ddt, const Dims d, const int heads) {
+  constexpr int NQ = NT / 4, NH = NT / 2;
   extern __shared__ __align__(16) float smem[];
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int grp = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int L = d.L, P = d.P, N = d.N, H = d.H;
   const int t0 = c * L, len = min(L, d.T - t0);
-  const int lp = P + 1, ll = L + 1, ln = N + 1;
-  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
-  float* xs = smem;                 // [L][P + 1]
-  float* dys = xs + L * lp;         // [L][P + 1]
-  float* big = dys + L * lp;        // M, R [L][L + 1] each; then C, Hin
-  float* Ms = big;
-  float* Rs = big + L * ll;
-  const int bigsz = max(2 * L * ll, (L + P) * ln);
-  float* cum = big + bigsz;         // [LMAX] each
+  const int L8 = up(L, 8), L16 = up(L, 16), P8 = up(P, 8), P16 = up(P, 16);
+  const int N8 = up(N, 8), N16 = up(N, 16);
+  const int SD = stride_b(P), SM = stride_b(L), SC = stride_b(N),
+            SH = stride_a(N);
+  float* Xs = smem;                           // [L16][SD] x, [P8][SH] Hin
+  float* U = Xs + out_bwd_x(L, P, N);         // [L16][SM] G, M; [L16][SC] C
+  float* Ds = U + out_bwd_u(L, P, N);         // [L16][SD] dy, then e^cum dy
+  float* Acc = Ds + L16 * SD;                 // [L16][SC] dC's share
+  float* cum = Acc + L16 * SC;                // LMAX each
   float* dts = cum + LMAX;
-  float* rowz = dts + LMAX;
-  float* colr = rowz + LMAX;
-  float* colz = colr + LMAX;
-  float* part = colz + LMAX;        // [LMAX][16]
-
-  stage(xs, lp, x + b * d.sxb + t0 * d.sxt + h * d.sxh, d.sxt, len, L, P);
+  float* ecm = dts + LMAX;                    // exp(cum)
+  float* rowz = ecm + LMAX;                   // [4][LMAX] Z's row sums
+  float* colr = rowz + 4 * LMAX;              // [8][LMAX] R's column sums
+  float* rowc = colr + 8 * LMAX;              // [2][LMAX] the state's row term
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int a = warp & 3, r = warp >> 2;
+  const int mlo = 16 * a, mhi = 16 * (7 - a);
+  const bool lo_on = mlo < L16, hi_on = mhi < L16;
+  const int mlo_c = min(mlo, L16 - 16), mhi_c = min(mhi, L16 - 16);
+  const long long bc = (long long)b * d.c + c;
   const long long dyrow = (long long)H * P;
-  stage(dys, lp, dy + ((long long)b * d.T + t0) * dyrow + (long long)h * P,
-        dyrow, len, L, P);
-  if (threadIdx.x < 32)
-    chunk_scan(dt + b * d.sdb + t0 * d.sdt + h * d.sdh, d.sdt, len, A[h], cum,
-               dts);
-  __syncthreads();
+  const float* Gc = G + bc * L * L;
+  const int ntn = N8 / 8, ntp = P8 / 8;
+  auto lo_tile = [&](int q) {
+    const int nj = r + 4 * q;
+    return lo_on && nj <= 2 * a + 1 && 8 * nj < L;
+  };
+  auto hi_tile = [&](int q) {
+    const int nj = r + 4 * q;
+    return hi_on && nj <= 15 - 2 * a && 8 * nj < L;
+  };
 
-  // dM = dy x^T on the causal blocks; M, R to shared memory (zero above
-  // the diagonal), this head's share of dG out
-  const long long bch = ((long long)b * d.c + c) * H + h;
-  const float* Gc = G + ((long long)b * d.c + c) * L * L;
-  float* dGo = dGh + bch * L * L;
-  for (int bl = 0; bl < L; bl += TB) {
-    for (int bs = 0; bs < L; bs += TB) {
-      if (bs > bl) {  // wholly above the diagonal
-        for (int e = threadIdx.x; e < TB * TB; e += WIDE) {
-          const int l = bl + e / TB, s = bs + e % TB;
-          if (l < L && s < L) {
-            Ms[l * ll + s] = 0.f;
-            Rs[l * ll + s] = 0.f;
-            dGo[l * L + s] = 0.f;
-          }
-        }
-        continue;
-      }
-      float acc[4][4];
-      tile4x4(acc, dys, lp, 1, L, xs, lp, 1, L, bl + ti, bs + tj, 0, P);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int l = bl + ti + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = bs + tj + 16 * j;
-          if (l >= L || s >= L) continue;
-          float m = 0.f, r = 0.f, g = 0.f;
-          if (s <= l) {
-            const float E = expf(cum[l] - cum[s]);
-            const float gg = Gc[l * L + s];
-            r = acc[i][j] * gg * E;
-            m = gg * E * dts[s];
-            g = acc[i][j] * E * dts[s];
-          }
-          Ms[l * ll + s] = m;
-          Rs[l * ll + s] = r;
-          dGo[l * L + s] = g;
-        }
-      }
-    }
-  }
-  __syncthreads();
+  for (int e = tid; e < L16 * SC; e += BIG) Acc[e] = 0.f;
+  float gl[2][4] = {}, gh[4][4] = {};  // this warp's tiles of the heads' dG
 
-  // intra dx = M^T dy (M is zero above the diagonal, so each thread's sum
-  // starts at its first row), and the row / column sums of R and Z = R o dt_s
-  float* dxo = dx + ((long long)b * d.T + t0) * dyrow + (long long)h * P;
-  for (int bs = 0; bs < L; bs += TB) {
-    for (int bp = 0; bp < P; bp += TB) {
-      float acc[4][4];
-      tile4x4(acc, Ms, 1, ll, L, dys, 1, lp, P, bs + ti, bp + tj, bs + ti, L);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = bs + ti + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = bp + tj + 16 * j;
-          if (s < len && p < P) dxo[s * dyrow + p] = acc[i][j];
-        }
-      }
-    }
-  }
-  for (int i = threadIdx.x; i < 2 * L; i += WIDE) {
-    if (i < L) {  // row i of Z
-      float z = 0.f;
-      for (int s = 0; s <= i; ++s) z += Rs[i * ll + s] * dts[s];
-      rowz[i] = z;
-    } else {      // column s of R
-      const int s = i - L;
-      float r = 0.f;
-      for (int l = s; l < L; ++l) r += Rs[l * ll + s];
-      colr[s] = r;
-      colz[s] = r * dts[s];
-    }
-  }
-  __syncthreads();
+  const int h_end = min(H, (grp + 1) * heads);
+  for (int h = grp * heads; h < h_end; ++h) {
+    const long long bch = bc * H + h;
+    __syncthreads();  // the previous head is done with every buffer
+    stage(Xs, SD, x + b * d.sxb + t0 * d.sxt + h * d.sxh, d.sxt, len, P, L16,
+          P16, d.vec & VEC_X);
+    stage(Ds, SD, dy + ((long long)b * d.T + t0) * dyrow + (long long)h * P,
+          dyrow, len, P, L16, P16, P % 4 == 0);
+    stage(U, SM, Gc, (long long)L, L, L, L16, L16, L % 4 == 0);
+    cp_commit();
+    if (warp == 0)
+      chunk_scan(dt + b * d.sdb + t0 * d.sdt + h * d.sdh, d.sdt, len, A[h],
+                 cum, dts);
+    cp_wait<0>();
+    __syncthreads();
+    if (tid < LMAX) ecm[tid] = expf(cum[tid]);
 
-  // the incoming state's term, with dy's rows scaled by exp(cum): C and Hin
-  // in place of M and R
-  float* Cs = big;          // [L][N + 1]
-  float* Hs = big + L * ln; // [P][N + 1]
-  stage(Cs, ln, Cm + b * d.scb + t0 * d.sct, d.sct, len, L, N);
-  stage(Hs, ln, Hin + bch * P * N, (long long)N, P, P, N);
-  for (int e = threadIdx.x; e < L * P; e += WIDE) {
-    const int l = e / P;
-    dys[l * lp + e - l * P] *= expf(cum[l]);
-  }
-  __syncthreads();
-  // dC's share = (exp(cum) dy) Hin, and the state's row term of d(cum),
-  // sum_n C[l, n] dC[l, n] (= exp(cum_l) dy_l . (C Hin^T)_l): each thread's
-  // share of its rows, then the sixteen shares of a row in order
-  float* dCo = dCh + bch * L * N;
-  for (int bl = 0; bl < L; bl += TB) {
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int bn = 0; bn < N; bn += TB) {
-      float acc[4][4];
-      tile4x4(acc, dys, lp, 1, L, Hs, 1, ln, N, bl + ti, bn + tj, 0, P);
+    // dM = dy x^T on the warp's causal tiles
+    float ml[2][4] = {}, mh[4][4] = {};
+    for (int k = 0; k < P8; k += 8) {
+      uint32_t lh[4], ll[4], hh[4], hl[4], bh[4][2], bl[4][2];
+      a_rows_p(Ds, SD, mlo_c, k, lh, ll);
+      a_rows_p(Ds, SD, mhi_c, k, hh, hl);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int l = bl + ti + 16 * i;
+      for (int q = 0; q < 4; ++q)
+        b_rows_p(Xs, SD, min(8 * (r + 4 * q), L16 - 8), k, bh[q], bl[q]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = bn + tj + 16 * j;
-          if (l < L && n < N) {
-            dCo[l * N + n] = acc[i][j];
-            v[i] += Cs[l * ln + n] * acc[i][j];
+      for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          mma_part(ml[q], pass, lh, ll, bh[q], bl[q]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma_part(mh[q], pass, hh, hl, bh[q], bl[q]);
+      }
+    }
+    __syncthreads();  // every warp is done with x: Hin takes its place
+    float* Hs = Xs;   // [P8][SH]
+    stage(Hs, SH, Hin + bch * P * N, (long long)N, P, N, P8, N8, N % 4 == 0);
+    cp_commit();
+    float* Ms = U;
+    float zr[2][2] = {};
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      if (lo_tile(q))
+        dm_tile(ml[q], gl[q], mlo, 8 * (r + 4 * q), a, L, cum, dts, Ms, SM,
+                colr, zr[0]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (hi_tile(q))
+        dm_tile(mh[q], gh[q], mhi, 8 * (r + 4 * q), 7 - a, L, cum, dts, Ms,
+                SM, colr, zr[1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float z0 = quad_sum(zr[i][0]), z1 = quad_sum(zr[i][1]);
+      const int m0 = i == 0 ? mlo : mhi;
+      if (t == 0 && m0 < L16) {
+        rowz[r * LMAX + m0 + g] = z0;
+        rowz[r * LMAX + m0 + g + 8] = z1;
+      }
+    }
+    __syncthreads();
+
+    // the intra term's dx = M^T dy; rows l < s add nothing, so the s-tile
+    // 7 - a joins at k = 16 (7 - a)
+    if (lo_on) {
+      float acc[2][2][4] = {};
+      const int jb = 2 * r;
+      const int pc[2] = {8 * min(jb, ntp - 1), 8 * min(jb + 1, ntp - 1)};
+      const int kmid = hi_on ? mhi : L8;
+      for (int k = mlo; k < kmid; k += 8) {
+        uint32_t ah[4], al[4], bh[2][2], bl[2][2];
+        a_cols(Ms, SM, mlo, k, ah, al);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) b_cols(Ds, SD, pc[j], k, bh[j], bl[j]);
+        mma3_tiles(acc[0], ah, al, bh, bl, 2);
+      }
+      for (int k = kmid; k < L8; k += 8) {
+        uint32_t ah[2][4], al[2][4], bh[2][2], bl[2][2];
+        a_cols(Ms, SM, mlo, k, ah[0], al[0]);
+        a_cols(Ms, SM, mhi, k, ah[1], al[1]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) b_cols(Ds, SD, pc[j], k, bh[j], bl[j]);
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              mma_part(acc[mi][j], pass, ah[mi], al[mi], bh[j], bl[j]);
+      }
+      float* dxo = dx + ((long long)b * d.T + t0) * dyrow + (long long)h * P;
+      const int ms[2] = {mlo, mhi};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; i += 2) {
+            const int s = ms[mi] + g + 4 * i, p = 8 * (jb + j) + 2 * t;
+            if (jb + j < ntp && s < len && p < P)
+              store2(dxo + s * dyrow + p, acc[mi][j][i], acc[mi][j][i + 1],
+                   p + 1 < P, P % 2 == 0);
           }
+    }
+    __syncthreads();  // done with M: C takes its place
+
+    float* Cs = U;  // [L16][SC]
+    stage(Cs, SC, Cm + b * d.scb + t0 * d.sct, d.sct, len, N, L16, N16,
+          d.vec & VEC_C);
+    cp_commit();
+    for (int e = tid; e < L16 * P16; e += BIG) {
+      const int l = e / P16;
+      Ds[l * SD + e - l * P16] *= ecm[l];
+    }
+    cp_wait<0>();
+    __syncthreads();
+
+    // dHin = (e^cum dy)^T C: p-tile a, the quarter r of the n-tiles
+    if (mlo < P16) {
+      const int jb = r * NQ;
+      float acc[NQ][4] = {};
+      for (int k = 0; k < L8; k += 8) {
+        uint32_t ah[4], al[4], bh[NQ][2], bl[NQ][2];
+        a_cols(Ds, SD, mlo, k, ah, al);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+          b_cols(Cs, SC, 8 * min(jb + j, ntn - 1), k, bh[j], bl[j]);
+        mma3_tiles(acc, ah, al, bh, bl, NQ);
+      }
+      float* dHo = dHin + bch * P * N;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; i += 2) {
+          const int p = mlo + g + 4 * i, n = 8 * (jb + j) + 2 * t;
+          if (p < P && n < N)
+            store2(dHo + p * N + n, acc[j][i], acc[j][i + 1], n + 1 < N,
+                 N % 2 == 0);
+        }
+    }
+    // dC's share (e^cum dy) Hin into the accumulator, and the state's row
+    // term of d(cum), sum_n C[l, n] dC[l, n]: l-tile w % 8, half w / 8 of
+    // the n-tiles
+    if (16 * (warp & 7) < L16) {
+      const int m0 = 16 * (warp & 7), jb = (warp >> 3) * NH;
+      float acc[NH][4] = {};
+      for (int k = 0; k < P8; k += 8) {
+        uint32_t ah[4], al[4], bh[NH][2], bl[NH][2];
+        a_rows_p(Ds, SD, m0, k, ah, al);
+#pragma unroll
+        for (int j = 0; j < NH; ++j)
+          b_cols_p(Hs, SH, 8 * min(jb + j, ntn - 1), k, bh[j], bl[j]);
+        mma3_tiles(acc, ah, al, bh, bl, NH);
+      }
+      float rc[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        if (jb + j >= ntn) continue;
+        const int n = 8 * (jb + j) + 2 * t;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int l = m0 + g + 8 * q;
+          const float2 cv = *reinterpret_cast<const float2*>(Cs + l * SC + n);
+          rc[q] += cv.x * acc[j][2 * q] + cv.y * acc[j][2 * q + 1];
+          float2* pa = reinterpret_cast<float2*>(Acc + l * SC + n);
+          float2 v = *pa;
+          v.x += acc[j][2 * q];
+          v.y += acc[j][2 * q + 1];
+          *pa = v;
         }
       }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int l = bl + ti + 16 * i;
-      if (l < L) part[l * 16 + tj] = v[i];
-    }
-  }
-  // dHin = (exp(cum) dy)^T C
-  float* dHo = dHin + bch * P * N;
-  for (int bn = 0; bn < N; bn += TB) {
-    float acc[4][4];
-    tile4x4(acc, dys, 1, lp, P, Cs, 1, ln, N, ti, bn + tj, 0, len);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = ti + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = bn + tj + 16 * j;
-        if (p < P && n < N) dHo[p * N + n] = acc[i][j];
+      const float r0 = quad_sum(rc[0]), r1 = quad_sum(rc[1]);
+      if (t == 0) {
+        rowc[(warp >> 3) * LMAX + m0 + g] = r0;
+        rowc[(warp >> 3) * LMAX + m0 + g + 8] = r1;
       }
     }
+    __syncthreads();
+    for (int l = tid; l < L; l += BIG) {
+      float cr = 0.f;
+      for (int mi = l / 16; mi < L16 / 16; ++mi) cr += colr[mi * LMAX + l];
+      const float rz = rowz[l] + rowz[LMAX + l] + rowz[2 * LMAX + l] +
+                       rowz[3 * LMAX + l];
+      dcum[bch * L + l] = rz - cr * dts[l] + (rowc[l] + rowc[LMAX + l]);
+      ddt[bch * L + l] = cr;
+    }
   }
-  __syncthreads();
-  for (int l = threadIdx.x; l < L; l += WIDE) {
-    float v = 0.f;
-    for (int k = 0; k < 16; ++k) v += part[l * 16 + k];
-    dcum[bch * L + l] = rowz[l] - colz[l] + v;
-    ddt[bch * L + l] = colr[l];
+  __syncthreads();  // the dC accumulator is complete
+
+  // this block's partial sums: dG (zero above the diagonal) and dC's share
+  float* dGo = dGp + (bc * gridDim.x + grp) * L * L;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    if (lo_tile(q)) put_tile(dGo, gl[q], mlo, 8 * (r + 4 * q), L);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (hi_tile(q)) put_tile(dGo, gh[q], mhi, 8 * (r + 4 * q), L);
+  for (int e = tid; e < L * L; e += BIG) {
+    const int l = e / L, s = e - l * L;
+    if (s >= l / 16 * 16 + 16) dGo[e] = 0.f;  // above the warps' tiles
+  }
+  float* dCo = dCp + (bc * gridDim.x + grp) * L * N;
+  for (int e = tid; e < L * N; e += BIG) {
+    const int l = e / N;
+    dCo[e] = Acc[l * SC + e - l * N];
   }
 }
 
@@ -417,170 +626,290 @@ ssd_state_pass_bwd_kernel(const float* __restrict__ Hin,
 
 // ---- (2') states_bwd ----------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(WIDE)
+// 16 warps; warp w owns rows s in [16 (w % 8), +16) and the half w / 8 of
+// the columns of both products: V = x dS (n-tiles) and W = B dS^T
+// (p-tiles).  NT: n-tiles of N (8 or 16).
+template <typename T, int NT>
+__global__ void __launch_bounds__(BIG, 1)
 ssd_states_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ A, const T* __restrict__ Bm,
                       const float* __restrict__ dS,
                       const float* __restrict__ dcum_o,
                       const float* __restrict__ ddt_o,
                       const float* __restrict__ dce, float* __restrict__ dx,
-                      float* __restrict__ dBh, float* __restrict__ ddt,
-                      float* __restrict__ dA_part, const Dims d) {
+                      float* __restrict__ dBp, float* __restrict__ ddt,
+                      float* __restrict__ dA_part, const Dims d,
+                      const int heads) {
+  constexpr int NH = NT / 2;
   extern __shared__ __align__(16) float smem[];
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int grp = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int L = d.L, P = d.P, N = d.N, H = d.H;
   const int t0 = c * L, len = min(L, d.T - t0);
-  const int lp = P + 1, ln = N + 1;
-  float* xs = smem;              // [L][P + 1]
-  float* Bs = xs + L * lp;       // [L][N + 1]
-  float* Vs = Bs + L * ln;       // [L][N + 1]
-  float* dSs = Vs + L * ln;      // [P][N + 1]
-  float* cum = dSs + P * ln;     // [LMAX] each
+  const int L16 = up(L, 16), P8 = up(P, 8), N8 = up(N, 8);
+  const int SX = stride_a(P), SB = stride_b(N);
+  float* Xs = smem;               // [L16][SX] x
+  float* Bs = Xs + L16 * SX;      // [L16][SB] B
+  float* Ss = Bs + L16 * SB;      // [P8][SB] dS
+  float* Acc = Ss + P8 * SB;      // [L16][SB] dB's share
+  float* cum = Acc + L16 * SB;    // LMAX each
   float* dts = cum + LMAX;
-  float* w = dts + LMAX;
-  float* ex = w + LMAX;
-  float* dw = ex + LMAX;
-  float* rc = dw + LMAX;
+  float* w = dts + LMAX;          // exp(cum_end - cum_s) dt_s
+  float* ex = w + LMAX;           // exp(cum_end - cum_s)
+  float* dw = ex + LMAX;          // [2][LMAX] B_s . V_s, by half
+  float* dco = dw + 2 * LMAX;     // dcum_o of the head
+  float* dto = dco + LMAX;        // ddt_o of the head
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, m0 = 16 * (warp & 7), half = warp >> 3;
+  const long long bc = (long long)b * d.c + c;
+  const long long xrow = (long long)H * P;
+  const int ntn = N8 / 8, ntp = P8 / 8;
 
-  const long long bch = ((long long)b * d.c + c) * H + h;
-  stage(xs, lp, x + b * d.sxb + t0 * d.sxt + h * d.sxh, d.sxt, len, L, P);
-  stage(Bs, ln, Bm + b * d.sbb + t0 * d.sbt, d.sbt, len, L, N);
-  stage(dSs, ln, dS + bch * P * N, (long long)N, P, P, N);
-  if (threadIdx.x < 32)
-    chunk_scan(dt + b * d.sdb + t0 * d.sdt + h * d.sdh, d.sdt, len, A[h], cum,
-               dts);
-  __syncthreads();
-  for (int s = threadIdx.x; s < L; s += WIDE) {
-    ex[s] = expf(cum[L - 1] - cum[s]);
-    w[s] = ex[s] * dts[s];
-  }
-  __syncthreads();
+  stage(Bs, SB, Bm + b * d.sbb + t0 * d.sbt, d.sbt, len, N, L16, N8,
+        d.vec & VEC_B);
+  for (int e = tid; e < L16 * SB; e += BIG) Acc[e] = 0.f;
 
-  // V = x dS (L x N): dB's share, kept for dw
-  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
-  float* dBo = dBh + bch * L * N;
-  for (int bs = 0; bs < L; bs += TB) {
-    for (int bn = 0; bn < N; bn += TB) {
-      float acc[4][4];
-      tile4x4(acc, xs, lp, 1, L, dSs, 1, ln, N, bs + ti, bn + tj, 0, P);
+  const int h_end = min(H, (grp + 1) * heads);
+  for (int h = grp * heads; h < h_end; ++h) {
+    const long long bch = bc * H + h;
+    __syncthreads();  // the previous head is done with every buffer
+    stage(Xs, SX, x + b * d.sxb + t0 * d.sxt + h * d.sxh, d.sxt, len, P, L16,
+          P8, d.vec & VEC_X);
+    stage(Ss, SB, dS + bch * P * N, (long long)N, P, N, P8, N8, N % 4 == 0);
+    stage(dco, LMAX, dcum_o + bch * L, 0, 1, L, 1, up(L, 4), L % 4 == 0);
+    stage(dto, LMAX, ddt_o + bch * L, 0, 1, L, 1, up(L, 4), L % 4 == 0);
+    cp_commit();
+    if (warp == 0)
+      chunk_scan(dt + b * d.sdb + t0 * d.sdt + h * d.sdh, d.sdt, len, A[h],
+                 cum, dts);
+    cp_wait<0>();
+    __syncthreads();
+    for (int s = tid; s < LMAX; s += BIG) {
+      ex[s] = s < L ? expf(cum[L - 1] - cum[s]) : 0.f;
+      w[s] = ex[s] * dts[s];
+    }
+    __syncthreads();
+
+    if (m0 < L16) {
+      // V = x dS: w o V is dB's share, B_s . V_s is dw
+      {
+        const int jb = half * NH;
+        float acc[NH][4] = {};
+#pragma unroll 2
+        for (int k = 0; k < P8; k += 8) {
+          uint32_t ah[4], al[4], bh[NH][2], bl[NH][2];
+          a_rows(Xs, SX, m0, k, ah, al);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = bs + ti + 16 * i;
+          for (int j = 0; j < NH; ++j)
+            b_cols(Ss, SB, 8 * min(jb + j, ntn - 1), k, bh[j], bl[j]);
+          mma3_tiles(acc, ah, al, bh, bl, NH);
+        }
+        float dwp[2] = {0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = bn + tj + 16 * j;
-          if (s < L && n < N) {
-            Vs[s * ln + n] = acc[i][j];
-            dBo[s * N + n] = w[s] * acc[i][j];
+        for (int j = 0; j < NH; ++j) {
+          if (jb + j >= ntn) continue;
+          const int n = 8 * (jb + j) + 2 * t;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int s = m0 + g + 8 * q;
+            const float2 bv = *reinterpret_cast<const float2*>(Bs + s * SB + n);
+            dwp[q] += bv.x * acc[j][2 * q] + bv.y * acc[j][2 * q + 1];
+            float2* pa = reinterpret_cast<float2*>(Acc + s * SB + n);
+            float2 v = *pa;
+            v.x += w[s] * acc[j][2 * q];
+            v.y += w[s] * acc[j][2 * q + 1];
+            *pa = v;
           }
         }
+        const float d0 = quad_sum(dwp[0]), d1 = quad_sum(dwp[1]);
+        if (t == 0) {
+          dw[half * LMAX + m0 + g] = d0;
+          dw[half * LMAX + m0 + g + 8] = d1;
+        }
       }
-    }
-  }
-  // dx += w o (B dS^T)
-  const long long xrow = (long long)H * P;
-  float* dxo = dx + ((long long)b * d.T + t0) * xrow + (long long)h * P;
-  for (int bs = 0; bs < len; bs += TB) {
-    float acc[4][4];
-    tile4x4(acc, Bs, ln, 1, len, dSs, ln, 1, P, bs + ti, tj, 0, N);
+      // dx += w o (B dS^T), the intra term's dx read before the product
+      const int jb = 4 * half;
+      float* dxo = dx + ((long long)b * d.T + t0) * xrow + (long long)h * P;
+      float dxv[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = bs + ti + 16 * i;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = tj + 16 * j;
-        if (s < len && p < P) dxo[s * xrow + p] += w[s] * acc[i][j];
+        for (int i = 0; i < 4; ++i) {
+          const int s = m0 + g + 8 * (i >> 1), p = 8 * (jb + j) + 2 * t + (i & 1);
+          dxv[j][i] = jb + j < ntp && s < len && p < P ? dxo[s * xrow + p]
+                                                       : 0.f;
+        }
+      float acc[4][4] = {};
+#pragma unroll 2
+      for (int k = 0; k < N8; k += 8) {
+        uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+        a_rows_p(Bs, SB, m0, k, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b_rows_p(Ss, SB, 8 * min(jb + j, ntp - 1), k, bh[j], bl[j]);
+        mma3_tiles(acc, ah, al, bh, bl, 4);
       }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int s = m0 + g + 8 * q, p = 8 * (jb + j) + 2 * t;
+          if (jb + j < ntp && s < len && p < P)
+            store2(dxo + s * xrow + p, dxv[j][2 * q] + w[s] * acc[j][2 * q],
+                 dxv[j][2 * q + 1] + w[s] * acc[j][2 * q + 1], p + 1 < P,
+                 P % 2 == 0);
+        }
+    }
+    __syncthreads();
+    // d(cum), its reverse running sum over the chunk (the gradient of
+    // dA = dt A), ddt and this chunk's share of dA, by warp 0: lane i owns
+    // rows 4i..4i+3
+    if (warp == 0) {
+      float dws[4], dww[4], v[4], part = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = 4 * lane + i;
+        dws[i] = dw[s] + dw[LMAX + s];
+        dww[i] = s < L ? dws[i] * w[s] : 0.f;
+        part += dww[i];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      const float last = dce[bch] + part;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = 4 * lane + i;
+        v[i] = s < L ? dco[s] - dww[i] + (s == L - 1 ? last : 0.f) : 0.f;
+      }
+      v[2] += v[3];
+      v[1] += v[2];
+      v[0] += v[1];
+      float incl = v[0];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float n = __shfl_down_sync(0xffffffffu, incl, o);
+        if (lane + o < 32) incl += n;
+      }
+      float excl = __shfl_down_sync(0xffffffffu, incl, 1);
+      if (lane == 31) excl = 0.f;
+      const float ah = A[h];
+      float da = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = 4 * lane + i;
+        const float rc = v[i] + excl;
+        da += rc * dts[s];
+        if (s < len)
+          ddt[((long long)b * d.T + t0 + s) * H + h] =
+              dto[s] + dws[i] * ex[s] + rc * ah;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        da += __shfl_xor_sync(0xffffffffu, da, o);
+      if (lane == 0) dA_part[bch] = da;
     }
   }
   __syncthreads();
-  for (int s = threadIdx.x; s < L; s += WIDE) {
-    float acc = 0.f;
-    for (int n = 0; n < N; ++n) acc += Bs[s * ln + n] * Vs[s * ln + n];
-    dw[s] = acc;
+  float* dBo = dBp + (bc * gridDim.x + grp) * L * N;
+  for (int e = tid; e < L * N; e += BIG) {
+    const int l = e / N;
+    dBo[e] = Acc[l * SB + e - l * N];
   }
-  __syncthreads();
-  // the chunk's rows in order, by one thread: d(cum), its reverse running
-  // sum (the gradient of dA = dt A), ddt and this chunk's share of dA
-  if (threadIdx.x == 0) {
-    const long long row = bch * L;
-    float last = dce[bch];
-    for (int s = 0; s < L; ++s) last += dw[s] * w[s];
-    float run = 0.f, da = 0.f;
-    for (int s = L - 1; s >= 0; --s) {
-      run += dcum_o[row + s] - dw[s] * w[s] + (s == L - 1 ? last : 0.f);
-      rc[s] = run;
-      da += run * dts[s];
-    }
-    dA_part[bch] = da;
-  }
-  __syncthreads();
-  const float a = A[h];
-  for (int s = threadIdx.x; s < len; s += WIDE)
-    ddt[((long long)b * d.T + t0 + s) * H + h] =
-        ddt_o[bch * L + s] + dw[s] * ex[s] + rc[s] * a;
 }
 
 // ---- (1') cb_bwd ---------------------------------------------------------------
 
+// Block x < ceil(L / 16): rows r0.. of dC = sum_g dC_g + dG B; else rows
+// r0.. of dB = sum_g dB_g + dG^T C.  Warp w owns the n-tiles w and w + 8.
 template <typename T>
 __global__ void __launch_bounds__(WIDE)
 ssd_cb_bwd_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
-                  const float* __restrict__ dGh, const float* __restrict__ dBh,
-                  const float* __restrict__ dCh,
+                  const float* __restrict__ dGp, const float* __restrict__ dBp,
+                  const float* __restrict__ dCp,
                   const float* __restrict__ dA_part, float* __restrict__ dB,
                   float* __restrict__ dC, float* __restrict__ dA,
-                  const Dims d) {
+                  const Dims d, const int ng) {
   extern __shared__ __align__(16) float smem[];
-  const int nt = (d.L + RT - 1) / RT;
+  const int L = d.L, N = d.N, H = d.H;
+  const int nt = (L + RT - 1) / RT;
   const int which = blockIdx.x / nt;  // 0: rows of dC, 1: rows of dB
   const int r0 = (blockIdx.x - which * nt) * RT;
   const int c = blockIdx.y, b = blockIdx.z;
-  const int L = d.L, N = d.N, H = d.H;
   const int t0 = c * L, len = min(L, d.T - t0);
-  const int ln = N + 1, rows = min(RT, L - r0);
-  float* Os = smem;             // [L][N + 1]: B for dC's rows, C for dB's
-  float* dGs = Os + L * ln;     // [RT][L]: dG's rows (dC) or columns (dB)
-  if (which == 0)
-    stage(Os, ln, Bm + b * d.sbb + t0 * d.sbt, d.sbt, len, L, N);
-  else
-    stage(Os, ln, Cm + b * d.scb + t0 * d.sct, d.sct, len, L, N);
-  const long long bc0 = ((long long)b * d.c + c) * H;
-  for (int e = threadIdx.x; e < rows * L; e += WIDE) {
-    // dC: dG[r0 + i, k], k fastest;  dB: dG[k, r0 + i], i fastest (the
-    // reads of a warp are consecutive either way)
-    const int i = which == 0 ? e / L : e % rows;
-    const int k = which == 0 ? e - i * L : e / rows;
-    const long long off = which == 0 ? (long long)(r0 + i) * L + k
-                                     : (long long)k * L + r0 + i;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h) acc += dGh[(bc0 + h) * L * L + off];
-    dGs[i * L + k] = acc;
-  }
-  __syncthreads();
-  const float* share = which == 0 ? dCh : dBh;
-  float* out = which == 0 ? dC : dB;
-  for (int e = threadIdx.x; e < rows * N; e += WIDE) {
-    const int i = e / N, n = e - i * N, r = r0 + i;
-    if (r >= len) continue;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h)
-      acc += share[((bc0 + h) * L + r) * N + n];
-    if (which == 0) {
-      for (int s = 0; s <= r; ++s) acc += dGs[i * L + s] * Os[s * ln + n];
-    } else {
-      for (int l = r; l < L; ++l) acc += dGs[i * L + l] * Os[l * ln + n];
+  const int L8 = up(L, 8), L16 = up(L, 16), N8 = up(N, 8);
+  const int SO = stride_b(N), SG = stride_a(L), SGC = stride_b(RT);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* Os = smem;            // [L16][SO]: B for dC's rows, C for dB's
+  float* Gs = Os + L16 * SO;   // dG's rows [RT][SG] or columns [L8][SGC]
+  const long long bc = (long long)b * d.c + c, gsz = (long long)L * L;
+  const float* dG0 = dGp + bc * ng * gsz;
+  const int kc = min(L, r0 + RT);
+  if (which == 0) {
+    stage(Os, SO, Bm + b * d.sbb + t0 * d.sbt, d.sbt, len, N, L16, N8,
+          d.vec & VEC_B);
+    cp_commit();
+    const int KC = up(kc, 8);
+    for (int e = tid; e < RT * KC; e += WIDE) {
+      const int i = e / KC, s = e - i * KC, r = r0 + i;
+      float v = 0.f;
+      if (r < L && s < kc)
+        for (int q = 0; q < ng; ++q) v += dG0[q * gsz + r * L + s];
+      Gs[i * SG + s] = v;
     }
-    out[((long long)b * d.T + t0 + r) * N + n] = acc;
+  } else {
+    stage(Os, SO, Cm + b * d.scb + t0 * d.sct, d.sct, len, N, L16, N8,
+          d.vec & VEC_C);
+    cp_commit();
+    for (int e = tid; e < (L8 - r0) * RT; e += WIDE) {
+      const int l = r0 + e / RT, j = e % RT;
+      float v = 0.f;
+      if (l < L && r0 + j < L)
+        for (int q = 0; q < ng; ++q) v += dG0[q * gsz + l * L + r0 + j];
+      Gs[l * SGC + j] = v;
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  const int ntn = N8 / 8;
+  const int kb = which == 0 ? 0 : r0, ke = which == 0 ? up(kc, 8) : L8;
+  float acc[2][4] = {};
+  const int nj = warp < ntn ? (warp + 8 < ntn ? 2 : 1) : 0;
+#pragma unroll 2
+  for (int k = kb; k < ke; k += 8) {
+    uint32_t ah[4], al[4], bh[2][2], bl[2][2];
+    if (which == 0)
+      a_rows(Gs, SG, 0, k, ah, al);
+    else
+      a_cols(Gs, SGC, 0, k, ah, al);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+      if (jj < nj) b_cols(Os, SO, 8 * (warp + 8 * jj), k, bh[jj], bl[jj]);
+    mma3_tiles(acc, ah, al, bh, bl, nj);
+  }
+  const float* part = (which == 0 ? dCp : dBp) + bc * ng * L * N;
+  float* out = (which == 0 ? dC : dB) + ((long long)b * d.T + t0) * N;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int j = warp + 8 * jj;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + g + 8 * (i >> 1), n = 8 * j + 2 * t + (i & 1);
+      if (j < ntn && r < len && n < N) {
+        float v = 0.f;
+        for (int q = 0; q < ng; ++q) v += part[((long long)q * L + r) * N + n];
+        out[(long long)r * N + n] = v + acc[jj][i];
+      }
+    }
   }
   if (blockIdx.x == 0 && c == 0 && b == 0) {
-    for (int h = threadIdx.x; h < H; h += WIDE) {
-      float acc = 0.f;
+    for (int h = tid; h < H; h += WIDE) {
+      float s = 0.f;
       for (int bb = 0; bb < d.B; ++bb)
         for (int cc = 0; cc < d.c; ++cc)
-          acc += dA_part[((long long)bb * d.c + cc) * H + h];
-      dA[h] = acc;
+          s += dA_part[((long long)bb * d.c + cc) * H + h];
+      dA[h] = s;
     }
   }
 }
@@ -599,18 +928,52 @@ int opt_in(K* kernel, int smem, std::atomic<int>& opted) {
   return 0;
 }
 
+inline int groups(const Dims& d, int heads) {
+  return heads >= 1 ? (d.H + heads - 1) / heads : 0;
+}
+
+template <typename T, int NT>
+int launch_out_bwd_nt(const void* x, const float* dt, const float* A,
+                      const void* Cm, const float* G, const float* Hin,
+                      const float* dy, float* dx, float* dGp, float* dCp,
+                      float* dHin, float* dcum, float* ddt, const Dims& d,
+                      int heads, int smem, cudaStream_t st) {
+  static std::atomic<int> opted{48 * 1024};
+  if (int e = opt_in(&ssd_out_bwd_kernel<T, NT>, smem, opted)) return e;
+  ssd_out_bwd_kernel<T, NT>
+      <<<dim3(groups(d, heads), d.c, d.B), BIG, smem, st>>>(
+          static_cast<const T*>(x), dt, A, static_cast<const T*>(Cm), G, Hin,
+          dy, dx, dGp, dCp, dHin, dcum, ddt, d, heads);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_out_bwd(const void* x, const float* dt, const float* A,
                    const void* Cm, const float* G, const float* Hin,
-                   const float* dy, float* dx, float* dGh, float* dCh,
+                   const float* dy, float* dx, float* dGp, float* dCp,
                    float* dHin, float* dcum, float* ddt, const Dims& d,
-                   int smem, cudaStream_t st) {
+                   int heads, int smem, cudaStream_t st) {
+  if (smem != smem_out_bwd(d.L, d.P, d.N) || groups(d, heads) < 1)
+    return (int)cudaErrorInvalidValue;
+  if (d.N <= 64)
+    return launch_out_bwd_nt<T, 8>(x, dt, A, Cm, G, Hin, dy, dx, dGp, dCp,
+                                   dHin, dcum, ddt, d, heads, smem, st);
+  return launch_out_bwd_nt<T, 16>(x, dt, A, Cm, G, Hin, dy, dx, dGp, dCp,
+                                  dHin, dcum, ddt, d, heads, smem, st);
+}
+
+template <typename T, int NT>
+int launch_states_bwd_nt(const void* x, const float* dt, const float* A,
+                         const void* Bm, const float* dS, const float* dcum_o,
+                         const float* ddt_o, const float* dce, float* dx,
+                         float* dBp, float* ddt, float* dA_part,
+                         const Dims& d, int heads, int smem, cudaStream_t st) {
   static std::atomic<int> opted{48 * 1024};
-  if (smem != smem_out_bwd(d.L, d.P, d.N)) return (int)cudaErrorInvalidValue;
-  if (int e = opt_in(&ssd_out_bwd_kernel<T>, smem, opted)) return e;
-  ssd_out_bwd_kernel<T><<<dim3(d.H, d.c, d.B), WIDE, smem, st>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Cm), G, Hin, dy,
-      dx, dGh, dCh, dHin, dcum, ddt, d);
+  if (int e = opt_in(&ssd_states_bwd_kernel<T, NT>, smem, opted)) return e;
+  ssd_states_bwd_kernel<T, NT>
+      <<<dim3(groups(d, heads), d.c, d.B), BIG, smem, st>>>(
+          static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), dS,
+          dcum_o, ddt_o, dce, dx, dBp, ddt, dA_part, d, heads);
   return (int)cudaGetLastError();
 }
 
@@ -618,45 +981,49 @@ template <typename T>
 int launch_states_bwd(const void* x, const float* dt, const float* A,
                       const void* Bm, const float* dS, const float* dcum_o,
                       const float* ddt_o, const float* dce, float* dx,
-                      float* dBh, float* ddt, float* dA_part, const Dims& d,
-                      int smem, cudaStream_t st) {
-  static std::atomic<int> opted{48 * 1024};
-  if (smem != smem_states_bwd(d.L, d.P, d.N))
+                      float* dBp, float* ddt, float* dA_part, const Dims& d,
+                      int heads, int smem, cudaStream_t st) {
+  if (smem != smem_states_bwd(d.L, d.P, d.N) || groups(d, heads) < 1)
     return (int)cudaErrorInvalidValue;
-  if (int e = opt_in(&ssd_states_bwd_kernel<T>, smem, opted)) return e;
-  ssd_states_bwd_kernel<T><<<dim3(d.H, d.c, d.B), WIDE, smem, st>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), dS, dcum_o,
-      ddt_o, dce, dx, dBh, ddt, dA_part, d);
-  return (int)cudaGetLastError();
+  if (d.N <= 64)
+    return launch_states_bwd_nt<T, 8>(x, dt, A, Bm, dS, dcum_o, ddt_o, dce,
+                                      dx, dBp, ddt, dA_part, d, heads, smem,
+                                      st);
+  return launch_states_bwd_nt<T, 16>(x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx,
+                                     dBp, ddt, dA_part, d, heads, smem, st);
 }
 
 template <typename T>
-int launch_cb_bwd(const void* Bm, const void* Cm, const float* dGh,
-                  const float* dBh, const float* dCh, const float* dA_part,
-                  float* dB, float* dC, float* dA, const Dims& d, int smem,
-                  cudaStream_t st) {
+int launch_cb_bwd(const void* Bm, const void* Cm, const float* dGp,
+                  const float* dBp, const float* dCp, const float* dA_part,
+                  float* dB, float* dC, float* dA, const Dims& d, int ng,
+                  int smem, cudaStream_t st) {
   static std::atomic<int> opted{48 * 1024};
-  if (smem != smem_cb_bwd(d.L, d.P, d.N)) return (int)cudaErrorInvalidValue;
+  if (smem != smem_cb_bwd(d.L, d.P, d.N) || ng < 1 || ng > d.H)
+    return (int)cudaErrorInvalidValue;
   if (int e = opt_in(&ssd_cb_bwd_kernel<T>, smem, opted)) return e;
   const int nt = (d.L + RT - 1) / RT;
   ssd_cb_bwd_kernel<T><<<dim3(2 * nt, d.c, d.B), WIDE, smem, st>>>(
-      static_cast<const T*>(Bm), static_cast<const T*>(Cm), dGh, dBh, dCh,
-      dA_part, dB, dC, dA, d);
+      static_cast<const T*>(Bm), static_cast<const T*>(Cm), dGp, dBp, dCp,
+      dA_part, dB, dC, dA, d, ng);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype (of x, Bm, Cm): 0 = float32, 1 = bfloat16.  smem: the pass's dynamic
-// shared memory in bytes, as ssd_bwd_plan computes it.
+// shared memory in bytes, as ssd_bwd_plan computes it.  heads: heads per
+// block of out_bwd and states_bwd; their grid has ceil(H / heads) groups,
+// and dGp, dCp, dBp hold one partial sum per group: (B, c, groups, L, L)
+// and (B, c, groups, L, N).
 
 extern "C" int ssd_out_bwd_launch(const void* x, const void* dt, const void* A,
                                   const void* Cm, const void* G,
                                   const void* Hin, const void* dy, void* dx,
-                                  void* dGh, void* dCh, void* dHin,
+                                  void* dGp, void* dCp, void* dHin,
                                   void* dcum, void* ddt,
-                                  const long long* dims, int dtype, int smem,
-                                  void* stream) {
+                                  const long long* dims, int dtype, int heads,
+                                  int smem, void* stream) {
   Dims d;
   if (!parse(dims, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -664,13 +1031,13 @@ extern "C" int ssd_out_bwd_launch(const void* x, const void* dt, const void* A,
   auto o = [](void* p) { return static_cast<float*>(p); };
   if (dtype == 0)
     return launch_out_bwd<float>(x, f(dt), f(A), Cm, f(G), f(Hin), f(dy),
-                                 o(dx), o(dGh), o(dCh), o(dHin), o(dcum),
-                                 o(ddt), d, smem, st);
+                                 o(dx), o(dGp), o(dCp), o(dHin), o(dcum),
+                                 o(ddt), d, heads, smem, st);
   if (dtype == 1)
     return launch_out_bwd<__nv_bfloat16>(x, f(dt), f(A), Cm, f(G), f(Hin),
-                                         f(dy), o(dx), o(dGh), o(dCh),
-                                         o(dHin), o(dcum), o(ddt), d, smem,
-                                         st);
+                                         f(dy), o(dx), o(dGp), o(dCp),
+                                         o(dHin), o(dcum), o(ddt), d, heads,
+                                         smem, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -694,9 +1061,10 @@ extern "C" int ssd_states_bwd_launch(const void* x, const void* dt,
                                      const void* A, const void* Bm,
                                      const void* dS, const void* dcum_o,
                                      const void* ddt_o, const void* dce,
-                                     void* dx, void* dBh, void* ddt,
+                                     void* dx, void* dBp, void* ddt,
                                      void* dA_part, const long long* dims,
-                                     int dtype, int smem, void* stream) {
+                                     int dtype, int heads, int smem,
+                                     void* stream) {
   Dims d;
   if (!parse(dims, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -704,32 +1072,33 @@ extern "C" int ssd_states_bwd_launch(const void* x, const void* dt,
   auto o = [](void* p) { return static_cast<float*>(p); };
   if (dtype == 0)
     return launch_states_bwd<float>(x, f(dt), f(A), Bm, f(dS), f(dcum_o),
-                                    f(ddt_o), f(dce), o(dx), o(dBh), o(ddt),
-                                    o(dA_part), d, smem, st);
+                                    f(ddt_o), f(dce), o(dx), o(dBp), o(ddt),
+                                    o(dA_part), d, heads, smem, st);
   if (dtype == 1)
     return launch_states_bwd<__nv_bfloat16>(
-        x, f(dt), f(A), Bm, f(dS), f(dcum_o), f(ddt_o), f(dce), o(dx), o(dBh),
-        o(ddt), o(dA_part), d, smem, st);
+        x, f(dt), f(A), Bm, f(dS), f(dcum_o), f(ddt_o), f(dce), o(dx), o(dBp),
+        o(ddt), o(dA_part), d, heads, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// ng: the groups whose partial sums dGp, dBp, dCp hold.
 extern "C" int ssd_cb_bwd_launch(const void* Bm, const void* Cm,
-                                 const void* dGh, const void* dBh,
-                                 const void* dCh, const void* dA_part,
+                                 const void* dGp, const void* dBp,
+                                 const void* dCp, const void* dA_part,
                                  void* dB, void* dC, void* dA,
-                                 const long long* dims, int dtype, int smem,
-                                 void* stream) {
+                                 const long long* dims, int dtype, int ng,
+                                 int smem, void* stream) {
   Dims d;
   if (!parse(dims, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
   if (dtype == 0)
-    return launch_cb_bwd<float>(Bm, Cm, f(dGh), f(dBh), f(dCh), f(dA_part),
-                                o(dB), o(dC), o(dA), d, smem, st);
+    return launch_cb_bwd<float>(Bm, Cm, f(dGp), f(dBp), f(dCp), f(dA_part),
+                                o(dB), o(dC), o(dA), d, ng, smem, st);
   if (dtype == 1)
-    return launch_cb_bwd<__nv_bfloat16>(Bm, Cm, f(dGh), f(dBh), f(dCh),
+    return launch_cb_bwd<__nv_bfloat16>(Bm, Cm, f(dGp), f(dBp), f(dCp),
                                         f(dA_part), o(dB), o(dC), o(dA), d,
-                                        smem, st);
+                                        ng, smem, st);
   return (int)cudaErrorInvalidValue;
 }

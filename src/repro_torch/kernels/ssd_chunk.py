@@ -47,8 +47,12 @@ The backward (``csrc/ssd_chunk_bwd.cu``, :func:`ssd_chunk_scan_bwd`) runs
 the four passes in reverse, each a kernel with its plain version here
 (``ssd_out_bwd``, ``ssd_state_pass_bwd``, ``ssd_states_bwd``,
 ``ssd_cb_bwd``), from what :func:`ssd_chunk_scan_train` keeps of the
-forward: G, the entering states Hin and cum_end.  The reference has no
-backward kernel; its training differentiates the plain jnp scan.
+forward: G, the entering states Hin and cum_end.  Its products run in
+3xTF32 like the forward's, and the heads' shares of dG, dC and dB are
+summed on chip: a block of ``out_bwd`` and ``states_bwd`` walks
+:func:`bwd_heads` heads of one (batch, chunk) and writes one partial sum
+per group, which ``cb_bwd`` adds.  The reference has no backward kernel;
+its training differentiates the plain jnp scan.
 """
 from __future__ import annotations
 
@@ -60,7 +64,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
-from ._tiles import SMEM_LIMIT
+from ._tiles import N_SMS, SMEM_LIMIT
 
 __all__ = ["ssd_chunk", "ssd_chunk_scan", "ssd_chunk_scan_train",
            "ssd_chunk_plain",
@@ -72,7 +76,7 @@ __all__ = ["ssd_chunk", "ssd_chunk_scan", "ssd_chunk_scan_train",
            "ssd_chunk_scan_bwd_plain", "ssd_out_bwd", "ssd_state_pass_bwd",
            "ssd_states_bwd", "ssd_cb_bwd", "ssd_out_bwd_plain",
            "ssd_state_pass_bwd_plain", "ssd_states_bwd_plain",
-           "ssd_cb_bwd_plain", "ssd_bwd_plan", "BWD_PASSES"]
+           "ssd_cb_bwd_plain", "ssd_bwd_plan", "bwd_heads", "BWD_PASSES"]
 
 LMAX, PMAX, NMAX = 128, 64, 128  # the kernels' chunk, head-dim, state limits
 PASSES = ("cb", "states", "state_pass", "out")
@@ -611,18 +615,53 @@ ssd_chunk.pass_launches = dict.fromkeys(PASSES, 0)
 #   cb_bwd          dG = sum_h dGh; dC = sum_h dCh + dG B; dB = sum_h dBh
 #                   + dG^T C; dA = sum over batch and chunks of dA_part
 #
+# A head's shares dGh, dCh and dBh never leave the kernel that makes them:
+# out_bwd and states_bwd walk ``heads`` heads of one (batch, chunk) a block
+# and hand on one sum per block, the group's (dG_g, dC_g, dB_g, each
+# (B, c, groups, ...)); cb_bwd adds the groups.  :func:`bwd_heads` sets
+# ``heads``; the plain versions cut the heads the same way.
+#
 # rcumsum is the reverse running sum inside the chunk (cum is the running
 # sum of dA = dt A).  Rows past T read as zeros and take no gradient.
+
+def bwd_heads(B: int, T: int, H: int, L: int) -> int:
+    """Heads per block of out_bwd and states_bwd: the fewest that give
+    each SM at most one block of (group, chunk, batch) (one block fits an
+    SM by shared memory), so that each group's partial sums are written
+    once and as few groups as the card allows."""
+    c = -(-T // L)
+    return min(H, max(1, -(-H * c * B // N_SMS)))
+
+
+def _group_sum(t, heads: int):
+    """(B, c, H, ...) -> (B, c, ceil(H / heads), ...): each group of
+    ``heads`` consecutive heads summed (one group: a sum over the heads)."""
+    H = t.shape[2]
+    if heads >= H:
+        return t.sum(2, keepdim=True)
+    ng = -(-H // heads)
+    if ng * heads != H:
+        t = torch.cat([t, t.new_zeros(t.shape[:2] + (ng * heads - H,)
+                                      + tuple(t.shape[3:]))], 2)
+    return t.reshape(t.shape[:2] + (ng, heads) + tuple(t.shape[3:])).sum(3)
+
+
+def _heads_arg(heads, x, H: int, L: int) -> int:
+    return bwd_heads(x.shape[0], x.shape[1], H, L) if heads is None \
+        else int(heads)
+
 
 def _heads_first(t):
     """(B, c, L, H) -> (B, c, H, L)."""
     return t.permute(0, 1, 3, 2)
 
 
-def ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk: int):
-    """Pass 4 reversed: (dx_o (B, T, H, P), dGh (B, c, H, L, L), dCh
-    (B, c, H, L, N), dHin (B, c, H, P, N), dcum_o (B, c, H, L), ddt_o
-    (B, c, H, L)), f32 (f64 for f64 input)."""
+def ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk: int, heads=None):
+    """Pass 4 reversed: (dx_o (B, T, H, P), dG_g (B, c, g, L, L), dC_g
+    (B, c, g, L, N), dHin (B, c, H, P, N), dcum_o (B, c, H, L), ddt_o
+    (B, c, H, L)), f32 (f64 for f64 input); dG_g and dC_g are the sums of
+    dGh and dCh over each group of ``heads`` heads (None: the kernel's,
+    :func:`bwd_heads`)."""
     T = x.shape[1]
     L = chunk
     xc, dyc, dtc, Cc = (_chunked(t, L) for t in (x, dy, dt, Cm))
@@ -646,8 +685,9 @@ def ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk: int):
     dcum_o = Z.sum(-1) - Z.sum(-2) + (Cc[:, :, None] * dCh).sum(-1)
     dHin = torch.einsum("bclhp,bcln->bchpn", dye, Cc)
     Bsz, c, _, H, P = xc.shape
-    return (dx_o.reshape(Bsz, c * L, H, P)[:, :T], dGh, dCh, dHin, dcum_o,
-            ddt_o)
+    heads = _heads_arg(heads, x, H, L)
+    return (dx_o.reshape(Bsz, c * L, H, P)[:, :T], _group_sum(dGh, heads),
+            _group_sum(dCh, heads), dHin, dcum_o, ddt_o)
 
 
 def ssd_state_pass_bwd_plain(Hin, cum_end, dHin, dhT=None):
@@ -667,9 +707,10 @@ def ssd_state_pass_bwd_plain(Hin, cum_end, dHin, dhT=None):
 
 
 def ssd_states_bwd_plain(x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o,
-                         chunk: int):
+                         chunk: int, heads=None):
     """Pass 2 reversed, and the decay gradients gathered: (dx (B, T, H, P),
-    dBh (B, c, H, L, N), ddt (B, T, H), dA_part (B, c, H))."""
+    dB_g (B, c, g, L, N) the sum of dBh over each group of ``heads`` heads,
+    ddt (B, T, H), dA_part (B, c, H))."""
     T = x.shape[1]
     L = chunk
     xc, dtc, Bc = _chunked(x, L), _chunked(dt, L), _chunked(Bm, L)
@@ -697,17 +738,18 @@ def ssd_states_bwd_plain(x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o,
     ddt = _wide(ddt_o) + dw * eh + ddA * _wide(A)[None, None, :, None]
     dA_part = (ddA * _heads_first(dtc)).sum(-1)
     ddt = ddt.permute(0, 1, 3, 2).reshape(Bsz, c * L, H)
-    return dx[:, :T], dBh, ddt[:, :T], dA_part
+    return (dx[:, :T], _group_sum(dBh, _heads_arg(heads, x, H, L)),
+            ddt[:, :T], dA_part)
 
 
-def ssd_cb_bwd_plain(Bm, Cm, dGh, dBh, dCh, dA_part, chunk: int):
-    """Pass 1 reversed, with the heads' shares summed: (dB (B, T, N), dC
+def ssd_cb_bwd_plain(Bm, Cm, dG_g, dB_g, dC_g, dA_part, chunk: int):
+    """Pass 1 reversed, with the groups' sums added: (dB (B, T, N), dC
     (B, T, N), dA (H,))."""
     T = Bm.shape[1]
     Bc, Cc = _chunked(Bm, chunk), _chunked(Cm, chunk)
-    dG = _wide(dGh).sum(2)
-    dC = _wide(dCh).sum(2) + torch.einsum("bcls,bcsn->bcln", dG, Bc)
-    dB = _wide(dBh).sum(2) + torch.einsum("bcls,bcln->bcsn", dG, Cc)
+    dG = _wide(dG_g).sum(2)
+    dC = _wide(dC_g).sum(2) + torch.einsum("bcls,bcsn->bcln", dG, Bc)
+    dB = _wide(dB_g).sum(2) + torch.einsum("bcls,bcln->bcsn", dG, Cc)
     Bsz, c, L, N = Bc.shape
     return (dB.reshape(Bsz, c * L, N)[:, :T], dC.reshape(Bsz, c * L, N)[:, :T],
             _wide(dA_part).sum((0, 1)))
@@ -717,14 +759,15 @@ def ssd_chunk_scan_bwd_plain(x, dt, A, Bm, Cm, saved, dy, dhT=None,
                              chunk: int = 128):
     """The four reversed passes' plain versions composed: (dx, ddt, dA, dB,
     dC, dh0) for the forward's ``saved`` = (G, Hin, cum_end), all f32 (f64
-    for f64 input)."""
+    for f64 input).  The heads' shares are summed in one group."""
     G, Hin, cum_end = saved
-    dx_o, dGh, dCh, dHin, dcum_o, ddt_o = ssd_out_bwd_plain(
-        x, dt, A, Cm, G, Hin, dy, chunk)
+    H = x.shape[2]
+    dx_o, dG_g, dC_g, dHin, dcum_o, ddt_o = ssd_out_bwd_plain(
+        x, dt, A, Cm, G, Hin, dy, chunk, heads=H)
     dS, dce, dh0 = ssd_state_pass_bwd_plain(Hin, cum_end, dHin, dhT)
-    dx, dBh, ddt, dA_part = ssd_states_bwd_plain(
-        x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o, chunk)
-    dB, dC, dA = ssd_cb_bwd_plain(Bm, Cm, dGh, dBh, dCh, dA_part, chunk)
+    dx, dB_g, ddt, dA_part = ssd_states_bwd_plain(
+        x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o, chunk, heads=H)
+    dB, dC, dA = ssd_cb_bwd_plain(Bm, Cm, dG_g, dB_g, dC_g, dA_part, chunk)
     return dx, ddt, dA, dB, dC, dh0
 
 
@@ -733,26 +776,35 @@ def ssd_chunk_scan_bwd_plain(x, dt, A, Bm, Cm, saved, dy, dhT=None,
 # ---------------------------------------------------------------------------
 
 BWD_PASSES = ("out_bwd", "state_pass_bwd", "states_bwd", "cb_bwd")
+BIG = 512  # threads of out_bwd and states_bwd
 RT_BWD = 16  # cb_bwd: rows of dB or dC per block
+NSMALL_BWD = 17  # out_bwd: rows of LMAX floats besides the tiles
 
 
 @functools.lru_cache(maxsize=256)
 def ssd_bwd_plan(B: int, T: int, H: int, P: int, N: int, L: int) -> dict:
     """How each pass of the backward is launched (grid, threads, dynamic
-    shared memory); ``csrc/ssd_chunk_bwd.cu`` holds the same formulas and
-    rejects any other."""
+    shared memory); out_bwd's and states_bwd's grid.x is the number of
+    head groups, ceil(H / bwd_heads).  ``csrc/ssd_chunk_bwd.cu`` holds the
+    same formulas and rejects any other."""
     ssd_plan(B, T, H, P, N, L)  # the same limits as the forward
     c = -(-T // L)
-    big = max(2 * L * (L + 1), (L + P) * (N + 1))
+    ng = -(-H // bwd_heads(B, T, H, L))
+    l16, p8 = _up(L, 16), _up(P, 8)
+    sbp, sbn = _stride_b(P), _stride_b(N)
+    xs = max(l16 * sbp, p8 * _stride_a(N))   # x, then Hin
+    us = l16 * _stride_b(max(L, N))          # G turned into M, then C
     plans = {
-        "out_bwd": PassPlan((H, c, B), WIDE,
-                            4 * (2 * L * (P + 1) + big + 21 * LMAX)),
+        "out_bwd": PassPlan((ng, c, B), BIG,
+                            4 * (xs + us + l16 * sbp + l16 * sbn
+                                 + NSMALL_BWD * LMAX)),
         "state_pass_bwd": PassPlan((H, B, 1), WIDE, 0),
-        "states_bwd": PassPlan((H, c, B), WIDE,
-                               4 * (L * (P + 1) + 2 * L * (N + 1)
-                                    + P * (N + 1) + 6 * LMAX)),
+        "states_bwd": PassPlan((ng, c, B), BIG,
+                               4 * (l16 * _stride_a(P) + 2 * l16 * sbn
+                                    + p8 * sbn + 8 * LMAX)),
         "cb_bwd": PassPlan((2 * -(-L // RT_BWD), c, B), WIDE,
-                           4 * (L * (N + 1) + L * RT_BWD)),
+                           4 * (l16 * sbn + max(RT_BWD * _stride_a(L),
+                                                l16 * _stride_b(RT_BWD)))),
     }
     assert all(p.smem <= SMEM_LIMIT for p in plans.values())
     return plans
@@ -762,10 +814,10 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("ssd_chunk_bwd")
     if not lib.ssd_out_bwd_launch.argtypes:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_out_bwd_launch.argtypes = [P] * 14 + [I, I, P]
+        lib.ssd_out_bwd_launch.argtypes = [P] * 14 + [I, I, I, P]
         lib.ssd_state_pass_bwd_launch.argtypes = [P] * 9
-        lib.ssd_states_bwd_launch.argtypes = [P] * 13 + [I, I, P]
-        lib.ssd_cb_bwd_launch.argtypes = [P] * 10 + [I, I, P]
+        lib.ssd_states_bwd_launch.argtypes = [P] * 13 + [I, I, I, P]
+        lib.ssd_cb_bwd_launch.argtypes = [P] * 10 + [I, I, I, P]
         for fn in (lib.ssd_out_bwd_launch, lib.ssd_state_pass_bwd_launch,
                    lib.ssd_states_bwd_launch, lib.ssd_cb_bwd_launch):
             fn.restype = ctypes.c_int
@@ -782,11 +834,15 @@ def _ptr(t) -> int:
 
 class _Bwd:
     """One backward's operands in the kernels' form: the forward's
-    ``_Seq`` (strided x, dt, Bm, Cm and the dims array) and its plan."""
+    ``_Seq`` (strided x, dt, Bm, Cm and the dims array), its plan and the
+    heads per block."""
 
     def __init__(self, seq: _Seq):
+        Bsz, T, H, P, N, L = seq.shape
         self.seq = seq
         self.plan = ssd_bwd_plan(*seq.shape)
+        self.heads = bwd_heads(Bsz, T, H, L)
+        self.groups = self.plan["out_bwd"].grid[0]
         self.lib = _lib_bwd()
 
     def done(self, err: int, name: str) -> None:
@@ -803,19 +859,19 @@ def _run_out_bwd(k: _Bwd, G, Hin, dy):
     Bsz, T, H, P, N, L = s.shape
     dy = _f32c(dy)
     dx = s.empty(Bsz, T, H, P)
-    dGh = s.empty(Bsz, s.c, H, L, L)
-    dCh = s.empty(Bsz, s.c, H, L, N)
+    dG_g = s.empty(Bsz, s.c, k.groups, L, L)
+    dC_g = s.empty(Bsz, s.c, k.groups, L, N)
     dHin = s.empty(Bsz, s.c, H, P, N)
     dcum = s.empty(Bsz, s.c, H, L)
     ddt = s.empty(Bsz, s.c, H, L)
     err = k.lib.ssd_out_bwd_launch(
         s.x.data_ptr(), s.dt.data_ptr(), s.A.data_ptr(), s.Cm.data_ptr(),
         _f32c(G).data_ptr(), _f32c(Hin).data_ptr(), dy.data_ptr(),
-        dx.data_ptr(), dGh.data_ptr(), dCh.data_ptr(), dHin.data_ptr(),
-        dcum.data_ptr(), ddt.data_ptr(), s.dims, s.dtype,
+        dx.data_ptr(), dG_g.data_ptr(), dC_g.data_ptr(), dHin.data_ptr(),
+        dcum.data_ptr(), ddt.data_ptr(), s.dims, s.dtype, k.heads,
         k.plan["out_bwd"].smem, s.stream)
     k.done(err, "out_bwd")
-    return dx, dGh, dCh, dHin, dcum, ddt
+    return dx, dG_g, dC_g, dHin, dcum, ddt
 
 
 def _run_state_pass_bwd(k: _Bwd, Hin, cum_end, dHin, dhT, want_dh0: bool):
@@ -837,29 +893,31 @@ def _run_states_bwd(k: _Bwd, dS, dcum_o, ddt_o, dce, dx):
     s = k.seq
     Bsz, T, H, P, N, L = s.shape
     dS, dcum_o, ddt_o, dce = (_f32c(t) for t in (dS, dcum_o, ddt_o, dce))
-    dBh = s.empty(Bsz, s.c, H, L, N)
+    dB_g = s.empty(Bsz, s.c, k.groups, L, N)
     ddt = s.empty(Bsz, T, H)
     dA_part = s.empty(Bsz, s.c, H)
     err = k.lib.ssd_states_bwd_launch(
         s.x.data_ptr(), s.dt.data_ptr(), s.A.data_ptr(), s.Bm.data_ptr(),
         dS.data_ptr(), dcum_o.data_ptr(), ddt_o.data_ptr(), dce.data_ptr(),
-        dx.data_ptr(), dBh.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
-        s.dims, s.dtype, k.plan["states_bwd"].smem, s.stream)
+        dx.data_ptr(), dB_g.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
+        s.dims, s.dtype, k.heads, k.plan["states_bwd"].smem, s.stream)
     k.done(err, "states_bwd")
-    return dx, dBh, ddt, dA_part
+    return dx, dB_g, ddt, dA_part
 
 
-def _run_cb_bwd(k: _Bwd, dGh, dBh, dCh, dA_part):
+def _run_cb_bwd(k: _Bwd, dG_g, dB_g, dC_g, dA_part):
     s = k.seq
     Bsz, T, H, P, N, L = s.shape
-    dGh, dBh, dCh, dA_part = (_f32c(t) for t in (dGh, dBh, dCh, dA_part))
+    dG_g, dB_g, dC_g, dA_part = (_f32c(t) for t in (dG_g, dB_g, dC_g,
+                                                    dA_part))
     dB = s.empty(Bsz, T, N)
     dC = s.empty(Bsz, T, N)
     dA = s.empty(H)
     err = k.lib.ssd_cb_bwd_launch(
-        s.Bm.data_ptr(), s.Cm.data_ptr(), dGh.data_ptr(), dBh.data_ptr(),
-        dCh.data_ptr(), dA_part.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dA.data_ptr(), s.dims, s.dtype, k.plan["cb_bwd"].smem, s.stream)
+        s.Bm.data_ptr(), s.Cm.data_ptr(), dG_g.data_ptr(), dB_g.data_ptr(),
+        dC_g.data_ptr(), dA_part.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dA.data_ptr(), s.dims, s.dtype, dG_g.shape[2],
+        k.plan["cb_bwd"].smem, s.stream)
     k.done(err, "cb_bwd")
     return dB, dC, dA
 
@@ -883,11 +941,12 @@ def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, saved, dy, dhT=None,
     G, Hin, cum_end = saved
     with torch.cuda.device(x.device):
         k = _Bwd(_Seq(x, dt, A, Bm, Cm, chunk))
-        dx, dGh, dCh, dHin, dcum_o, ddt_o = _run_out_bwd(k, G, Hin, dy)
+        dx, dG_g, dC_g, dHin, dcum_o, ddt_o = _run_out_bwd(k, G, Hin, dy)
         dS, dce, dh0 = _run_state_pass_bwd(k, Hin, cum_end, dHin, dhT,
                                            want_dh0)
-        dx, dBh, ddt, dA_part = _run_states_bwd(k, dS, dcum_o, ddt_o, dce, dx)
-        dB, dC, dA = _run_cb_bwd(k, dGh, dBh, dCh, dA_part)
+        dx, dB_g, ddt, dA_part = _run_states_bwd(k, dS, dcum_o, ddt_o, dce,
+                                                 dx)
+        dB, dC, dA = _run_cb_bwd(k, dG_g, dB_g, dC_g, dA_part)
     with _count_lock:
         ssd_chunk_scan_bwd.launches += 1
     return dx, ddt, dA, dB, dC, dh0
@@ -898,7 +957,8 @@ def _bwd_pass(x, dt, A, Bm, Cm, chunk, *more) -> _Bwd:
 
 
 def ssd_out_bwd(x, dt, A, Cm, G, Hin, dy, chunk: int):
-    """Pass 4 reversed alone (see :func:`ssd_out_bwd_plain`)."""
+    """Pass 4 reversed alone (see :func:`ssd_out_bwd_plain`), the heads in
+    the kernel's groups."""
     if x.device.type == "cpu":
         return ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk)
     with torch.cuda.device(x.device):
@@ -921,8 +981,8 @@ def ssd_state_pass_bwd(Hin, cum_end, dHin, dhT=None):
 
 
 def ssd_states_bwd(x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o, chunk: int):
-    """Pass 2 reversed alone (see :func:`ssd_states_bwd_plain`); ``dx_o``
-    is not modified."""
+    """Pass 2 reversed alone (see :func:`ssd_states_bwd_plain`), the heads
+    in the kernel's groups; ``dx_o`` is not modified."""
     if x.device.type == "cpu":
         return ssd_states_bwd_plain(x, dt, A, Bm, dS, dcum_o, ddt_o, dce,
                                     dx_o, chunk)
@@ -932,18 +992,19 @@ def ssd_states_bwd(x, dt, A, Bm, dS, dcum_o, ddt_o, dce, dx_o, chunk: int):
                                dx_o.to(torch.float32).contiguous().clone())
 
 
-def ssd_cb_bwd(Bm, Cm, dGh, dBh, dCh, dA_part, chunk: int):
-    """Pass 1 reversed alone (see :func:`ssd_cb_bwd_plain`)."""
+def ssd_cb_bwd(Bm, Cm, dG_g, dB_g, dC_g, dA_part, chunk: int):
+    """Pass 1 reversed alone (see :func:`ssd_cb_bwd_plain`), for any number
+    of groups."""
     if Bm.device.type == "cpu":
-        return ssd_cb_bwd_plain(Bm, Cm, dGh, dBh, dCh, dA_part, chunk)
+        return ssd_cb_bwd_plain(Bm, Cm, dG_g, dB_g, dC_g, dA_part, chunk)
     Bsz, T, N = Bm.shape
-    H = dGh.shape[2]
+    H = dA_part.shape[2]
     x = Bm.new_empty((Bsz, T, H, 1))
     dt = torch.empty((Bsz, T, H), device=Bm.device)
     with torch.cuda.device(Bm.device):
         k = _bwd_pass(x, dt, torch.empty(H, device=Bm.device), Bm, Cm, chunk,
-                      dGh, dBh, dCh, dA_part)
-        return _run_cb_bwd(k, dGh, dBh, dCh, dA_part)
+                      dG_g, dB_g, dC_g, dA_part)
+        return _run_cb_bwd(k, dG_g, dB_g, dC_g, dA_part)
 
 
 ssd_chunk_scan_bwd.launches = 0  # whole backward calls run on the card

@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from .common import unshard
+
 __all__ = ["blockwise_causal_attention", "decode_attention",
            "chunk_attention", "flash_causal_attention"]
 
@@ -234,7 +236,17 @@ def decode_attention(
     batch lanes sit at different depths.  Slots carry RoPE'd keys, so
     softmax is order-agnostic; the mask only hides never-written slots.
     Returns (B, 1, H, P).
+
+    For the dry-run's DTensors, a cache whose KV-head dim is sharded (over
+    ``model``) has that dim, and the query's head dim, gathered first
+    (``unshard``; the other dims keep their sharding): the einsums'
+    batched products would flatten it into the batch, which DTensor
+    refuses on torch 2.11.  Any other cache (MQA's single KV head, plain
+    tensors) is used as it is.
     """
+    if any(getattr(pl, "dim", None) == 2
+           for pl in getattr(k_cache, "placements", ())):
+        q, k_cache, v_cache = (unshard(t, 2) for t in (q, k_cache, v_cache))
     B, S, K, P = k_cache.shape
     H = q.shape[2]
     G = H // K

@@ -18,6 +18,7 @@ kernel ``csrc/ssd_chunk_bwd.cu`` computes, pass by pass) and the
 """
 import functools
 import importlib
+import importlib.util
 import re
 from pathlib import Path
 
@@ -179,40 +180,201 @@ def test_backward_passes_compose_to_the_whole():
     _, _, (G, Hin, ce) = K.ssd_chunk_scan_train(x, dt, A, Bm, Cm, h0, chunk)
     o = K.ssd_out_bwd(x, dt, A, Cm, G, Hin, dy, chunk)
     c = -(-T // chunk)
+    ng = -(-H // K.bwd_heads(B, T, H, chunk))
     assert [tuple(a.shape) for a in o] == [
-        (B, T, H, P), (B, c, H, chunk, chunk), (B, c, H, chunk, N),
+        (B, T, H, P), (B, c, ng, chunk, chunk), (B, c, ng, chunk, N),
         (B, c, H, P, N), (B, c, H, chunk), (B, c, H, chunk)]
     dS, dce, dh0 = K.ssd_state_pass_bwd(Hin, ce, o[3], dhT)
-    dx, dBh, ddt, dA_part = K.ssd_states_bwd(x, dt, A, Bm, dS, o[4], o[5],
-                                             dce, o[0], chunk)
-    dB, dC, dA = K.ssd_cb_bwd(Bm, Cm, o[1], dBh, o[2], dA_part, chunk)
+    dx, dB_g, ddt, dA_part = K.ssd_states_bwd(x, dt, A, Bm, dS, o[4], o[5],
+                                              dce, o[0], chunk)
+    assert tuple(dB_g.shape) == (B, c, ng, chunk, N)
+    dB, dC, dA = K.ssd_cb_bwd(Bm, Cm, o[1], dB_g, o[2], dA_part, chunk)
     whole = K.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, (G, Hin, ce), dy, dhT,
                                  chunk)
     for a, b in zip((dx, ddt, dA, dB, dC, dh0), whole):
         assert torch.equal(a, b)
-    # a head's share of dG is causal: zero above the diagonal
+    # a group's share of dG is causal: zero above the diagonal
     assert not o[1].triu(1).any()
+
+
+def _old_per_head(x, dt, A, Bm, Cm, saved, dy, dhT, chunk):
+    """The passes as they ran before the heads were grouped: one group a
+    head, so that the out and states passes hand on each head's dGh, dCh
+    and dBh and cb_bwd sums all of them."""
+    G, Hin, ce = saved
+    o = K.ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk, heads=1)
+    dS, dce, dh0 = K.ssd_state_pass_bwd_plain(Hin, ce, o[3], dhT)
+    s = K.ssd_states_bwd_plain(x, dt, A, Bm, dS, o[4], o[5], dce, o[0],
+                               chunk, heads=1)
+    return o, (dS, dce, dh0), s
+
+
+GROUPINGS = [
+    # B, T, H, P, N, chunk, heads (the last group short where H % heads)
+    (2, 21, 3, 5, 6, 8, 2),
+    (2, 21, 3, 5, 6, 8, 3),
+    (1, 32, 5, 4, 3, 16, 2),
+    (1, 32, 5, 4, 3, 16, 4),
+]
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk,heads", GROUPINGS)
+def test_grouped_passes_equal_the_per_head_passes(B, T, H, P, N, chunk,
+                                                  heads):
+    """Each pass that sums a group of heads (out_bwd's dG_g and dC_g,
+    states_bwd's dB_g) holds the sum of the per-head passes' shares over
+    the group, its other outputs are theirs, and cb_bwd on the groups
+    gives the per-head composition's dB, dC, dA: in f64 to 1e-12."""
+    d = _inputs(B, T, H, P, N, True, True, seed=B + T + heads)
+    t = {k: to_t(v).double() for k, v in d.items()}
+    x, dt, A, Bm, Cm, h0, dy, dhT = (t[k] for k in ("x", "dt", "A", "Bm",
+                                                    "Cm", "h0", "dy", "dhT"))
+    _, _, saved = K.ssd_chunk_scan_train(x, dt, A, Bm, Cm, h0, chunk)
+    o1, (dS, dce, _), s1 = _old_per_head(x, dt, A, Bm, Cm, saved, dy, dhT,
+                                         chunk)
+    G, Hin, ce = saved
+    o = K.ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, dy, chunk, heads=heads)
+    s = K.ssd_states_bwd_plain(x, dt, A, Bm, dS, o[4], o[5], dce, o[0],
+                               chunk, heads=heads)
+    ng = -(-H // heads)
+    for j in range(ng):
+        hs = slice(j * heads, min(H, (j + 1) * heads))
+        _rel_close(o[1][:, :, j], o1[1][:, :, hs].sum(2), 1e-12, "dG_g")
+        _rel_close(o[2][:, :, j], o1[2][:, :, hs].sum(2), 1e-12, "dC_g")
+        _rel_close(s[1][:, :, j], s1[1][:, :, hs].sum(2), 1e-12, "dB_g")
+    for i in (0, 3, 4, 5):
+        assert torch.equal(o[i], o1[i])
+    for i in (0, 2, 3):
+        assert torch.equal(s[i], s1[i])
+    got = K.ssd_cb_bwd_plain(Bm, Cm, o[1], s[1], o[2], s[3], chunk)
+    want = K.ssd_cb_bwd_plain(Bm, Cm, o1[1], s1[1], o1[2], s1[3], chunk)
+    for n, a, b in zip(("dB", "dC", "dA"), got, want):
+        _rel_close(a, b, 1e-12, n)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk,heads", GROUPINGS)
+def test_grouped_passes_compose_to_the_f64_derivative(B, T, H, P, N, chunk,
+                                                      heads):
+    """The grouped passes composed equal autograd through the plain
+    forward in f64 (1e-12) and ``jax.grad`` of the reference's
+    ``ssd_chunked`` in f32 (TOL32)."""
+    d = _inputs(B, T, H, P, N, True, True, seed=3 * T + heads)
+    names = ("x", "dt", "A", "Bm", "Cm")
+
+    def composed(t):
+        _, _, saved = K.ssd_chunk_scan_train(*(t[k] for k in names),
+                                             t["h0"], chunk)
+        G, Hin, ce = saved
+        x, dt, A, Bm, Cm = (t[k] for k in names)
+        o = K.ssd_out_bwd_plain(x, dt, A, Cm, G, Hin, t["dy"], chunk,
+                                heads=heads)
+        dS, dce, dh0 = K.ssd_state_pass_bwd_plain(Hin, ce, o[3], t["dhT"])
+        dx, dB_g, ddt, dA_part = K.ssd_states_bwd_plain(
+            x, dt, A, Bm, dS, o[4], o[5], dce, o[0], chunk, heads=heads)
+        dB, dC, dA = K.ssd_cb_bwd_plain(Bm, Cm, o[1], dB_g, o[2], dA_part,
+                                        chunk)
+        return dx, ddt, dA, dB, dC, dh0
+
+    t64 = {k: torch.from_numpy(v).double() for k, v in d.items()}
+    ins = [t64[k].requires_grad_(True) for k in names + ("h0",)]
+    y, hT = K.ssd_chunk_scan_passes_plain(*ins, chunk)
+    want = torch.autograd.grad((y * t64["dy"]).sum()
+                               + (hT * t64["dhT"]).sum(), ins)
+    with torch.no_grad():
+        got = composed({k: v.detach() for k, v in t64.items()})
+    for n, g, w in zip(NAMES, got, want):
+        _rel_close(g, w, 1e-12, n)
+    jgot = _jax_grad(chunk, True, True)(
+        *(to_j(d[k]) for k in names + ("h0", "dy", "dhT")))
+    got32 = composed({k: to_t(v) for k, v in d.items()})
+    for n, g, w in zip(NAMES, got32, jgot):
+        _rel_close(g, w, TOL32, f"grouped {n}")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cu_const(name: str) -> int:
+    text = (CSRC / "ssd_chunk_bwd.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _kernel_smem(L, P, N):
+    """The shared memory of each pass as ``csrc/ssd_chunk_bwd.cu`` writes
+    it (smem_out_bwd, smem_states_bwd, smem_cb_bwd), transcribed apart
+    from ``ssd_bwd_plan``."""
+    up = lambda a, b: -(-a // b) * b
+    sa = lambda n: up(n, 8) + 4
+    sb = lambda n: up(n, 16) + 8
+    l16, rt, lmax = up(L, 16), _cu_const("RT"), 128
+    xs = max(l16 * sb(P), up(P, 8) * sa(N))
+    us = l16 * (sb(L) if L > N else sb(N))
+    return {
+        "out_bwd": 4 * (xs + us + l16 * sb(P) + l16 * sb(N)
+                        + _cu_const("NSMALL") * lmax),
+        "state_pass_bwd": 0,
+        "states_bwd": 4 * (l16 * sa(P) + 2 * l16 * sb(N) + up(P, 8) * sb(N)
+                           + 8 * lmax),
+        "cb_bwd": 4 * (l16 * sb(N) + max(rt * sa(L), l16 * sb(rt))),
+    }
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_backward_plan_matches_the_kernel_formulas_at_the_chip_cases(case):
+    """``ssd_bwd_plan`` at each case that ``chip_smoke.py`` holds the
+    kernel to (the model's, with h0 and dhT, ragged, Mamba2-2.7B's heads,
+    bf16, odd widths): grids, threads and shared memory as the kernel
+    computes them, within the card's limits."""
+    cases = _chip_smoke().ssd_bwd_cases(torch)
+    assert len(cases) == 6
+    _, B, T, H, P, N, L, *_ = cases[case]
+    plan = K.ssd_bwd_plan(B, T, H, P, N, L)
+    c = -(-T // L)
+    heads = K.bwd_heads(B, T, H, L)
+    ng = -(-H // heads)
+    assert 1 <= heads <= H and ng * c * B <= 132 or heads == 1
+    assert plan["out_bwd"].grid == plan["states_bwd"].grid == (ng, c, B)
+    assert plan["state_pass_bwd"].grid == (H, B, 1)
+    assert plan["cb_bwd"].grid == (2 * -(-L // _cu_const("RT")), c, B)
+    assert {k: p.smem for k, p in plan.items()} == _kernel_smem(L, P, N)
+    big = _cu_const("BIG")
+    assert [p.threads for p in plan.values()] == [big, 256, big, 256]
+    for p in plan.values():
+        assert p.smem <= 232_448
 
 
 def test_backward_plans_fit_and_match_the_kernel():
     plan = K.ssd_bwd_plan(4, 512, 64, 64, 64, 128)
-    assert plan["out_bwd"].grid == (64, 4, 4)
-    assert plan["out_bwd"].smem == 4 * (2 * 128 * 65 + 2 * 128 * 129
-                                        + 21 * 128)
-    assert plan["states_bwd"].smem == 4 * (128 * 65 + 2 * 128 * 65
-                                           + 64 * 65 + 6 * 128)
+    assert K.bwd_heads(4, 512, 64, 128) == 8
+    assert plan["out_bwd"].grid == plan["states_bwd"].grid == (8, 4, 4)
+    assert plan["out_bwd"].smem == 4 * (128 * 136 + 3 * 128 * 72 + 17 * 128)
+    assert K.ssd_bwd_plan(4, 512, 64, 64, 128, 128)["out_bwd"].smem == 4 * (
+        128 * 72 + 2 * 128 * 136 + 128 * 72 + 17 * 128)
+    assert plan["states_bwd"].smem == 4 * (128 * 68 + 2 * 128 * 72
+                                           + 64 * 72 + 8 * 128)
     assert plan["cb_bwd"].grid == (16, 4, 4)
-    assert plan["cb_bwd"].smem == 4 * (128 * 65 + 128 * 16)
+    assert plan["cb_bwd"].smem == 4 * (128 * 72 + 128 * 24)
     assert plan["state_pass_bwd"].grid == (64, 4, 1)
     for L, P, N in ((128, 64, 128), (128, 64, 64), (42, 18, 10)):
         for p in K.ssd_bwd_plan(2, 300, 4, P, N, L).values():
-            assert p.smem <= 232_448 and p.threads == 256
+            assert p.smem <= 232_448 and p.threads in (256, 512)
     with pytest.raises(ValueError, match="SSD kernel limits"):
         K.ssd_bwd_plan(1, 16, 1, 65, 8, 16)
+    assert _cu_const("RT") == K.RT_BWD
+    assert _cu_const("NSMALL") == K.NSMALL_BWD
+    assert _cu_const("BIG") == K.BIG
     text = (CSRC / "ssd_chunk_bwd.cu").read_text()
-    assert int(re.search(r"constexpr int RT = (\d+);", text).group(1)) \
-        == K.RT_BWD
     for entry in ("ssd_out_bwd_launch", "ssd_state_pass_bwd_launch",
                   "ssd_states_bwd_launch", "ssd_cb_bwd_launch"):
         assert f'extern "C" int {entry}(' in text
     assert "atomicAdd" not in text  # fixed-order sums only
+    # one copy of the 3xTF32 helpers, shared with the forward
+    for src in ("ssd_chunk.cu", "ssd_chunk_bwd.cu"):
+        body = (CSRC / src).read_text()
+        assert '#include "ssd_common.cuh"' in body
+        assert "void split(" not in body and "void mma_tf32(" not in body
