@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.conv2d import conv2d as _conv2d_kernel
+from ..telemetry.trace import span
 from .coding import device_index
 from .schemes import (CodingScheme, chunk_bounds, commutes_elementwise,
                       decode_blocks, resolve_subset, source_of_piece)
@@ -298,6 +299,11 @@ def run_segment(
     ``executor`` (a ``repro_torch.dist.CodedExecutor``) each chain is one
     multi-layer piece on the worker pool, decoded at the k-th *arrival*
     with straggler cancellation at segment granularity.
+
+    Spans: ``repro.coded.segment`` around the run, and in it
+    ``repro.coded.encode``, ``repro.coded.decode`` and
+    ``repro.coded.assemble`` (the width concat and the master's
+    remainder).
     """
     d = len(specs)
     if not (len(weights) == len(pads) == len(acts) == d):
@@ -321,53 +327,62 @@ def run_segment(
                 " that a linear mix cannot represent piece-locally — only "
                 "selection schemes (replication/uncoded) may fuse across it")
 
-    if commuting:
-        # selection dispatch: piece i carries its source partition's slice
-        # verbatim (edge chains are narrower — no row-stacking involved)
-        srcs = [source_of_piece(scheme, i) for i in range(scheme.n)]
-        piece_part = [split.parts[s] for s in srcs]
-        piece_in = [x[..., cp.entry.a_i:cp.entry.b_i] for cp in piece_part]
-    else:
-        parts = torch.stack(
-            [x[..., cp.entry.a_i:cp.entry.b_i] for cp in split.parts])
-        coded_in = _encode_partitions(scheme, parts)
-        piece_part = [split.parts[0]] * scheme.n
-        piece_in = [coded_in[i] for i in range(scheme.n)]
-    _count_op("encode")
-    chunks = max(1, int(stream_chunks)) if stream_chunks else 1
+    with span("coded.segment"):
+        with span("coded.encode"):
+            if commuting:
+                # selection dispatch: piece i carries its source
+                # partition's slice verbatim (edge chains are narrower —
+                # no row-stacking involved)
+                srcs = [source_of_piece(scheme, i) for i in range(scheme.n)]
+                piece_part = [split.parts[s] for s in srcs]
+                piece_in = [x[..., cp.entry.a_i:cp.entry.b_i]
+                            for cp in piece_part]
+            else:
+                parts = torch.stack(
+                    [x[..., cp.entry.a_i:cp.entry.b_i] for cp in split.parts])
+                coded_in = _encode_partitions(scheme, parts)
+                piece_part = [split.parts[0]] * scheme.n
+                piece_in = [coded_in[i] for i in range(scheme.n)]
+        _count_op("encode")
+        chunks = max(1, int(stream_chunks)) if stream_chunks else 1
 
-    def _piece(i: int) -> torch.Tensor:
-        return _chain(piece_in[i], piece_part[i], weights, specs, pads, acts,
-                      apply_acts=commuting, entry_chunks=chunks)
+        def _piece(i: int) -> torch.Tensor:
+            return _chain(piece_in[i], piece_part[i], weights, specs, pads,
+                          acts, apply_acts=commuting, entry_chunks=chunks)
 
-    if executor is not None:
-        if hasattr(executor, "ensure_armed"):
-            # per-layer telemetry: a depth-d chain piece reports d stage
-            # durations; declaring the per-layer sizes lets an adaptive
-            # executor feed each stage to the estimator
-            from .netplan import segment_layer_sizes
+        if executor is not None:
+            if hasattr(executor, "ensure_armed"):
+                # per-layer telemetry: a depth-d chain piece reports d stage
+                # durations; declaring the per-layer sizes lets an adaptive
+                # executor feed each stage to the estimator
+                from .netplan import segment_layer_sizes
 
-            executor.ensure_armed(segment_layer_sizes(specs, pads, scheme,
-                                                      split))
-        y_parts = executor.run(
-            scheme, [lambda i=i: _piece(i) for i in range(scheme.n)],
-            assignment=assignment, decode_chunks=chunks,
-        )  # (k, B, C_O, H_O, W_O^p)
-    else:
-        subset = resolve_subset(scheme, subset)
-        outs = torch.stack([_piece(i) for i in subset])
-        y_parts = decode_blocks(scheme, subset, outs, chunks=chunks)
-    _count_op("decode")
+                executor.ensure_armed(segment_layer_sizes(specs, pads, scheme,
+                                                          split))
+            # the executor decodes at the k-th arrival, in its own
+            # coded.decode span
+            y_parts = executor.run(
+                scheme, [lambda i=i: _piece(i) for i in range(scheme.n)],
+                assignment=assignment, decode_chunks=chunks,
+            )  # (k, B, C_O, H_O, W_O^p)
+        else:
+            subset = resolve_subset(scheme, subset)
+            outs = torch.stack([_piece(i) for i in subset])
+            with span("coded.decode"):
+                y_parts = decode_blocks(scheme, subset, outs, chunks=chunks)
+        _count_op("decode")
 
-    y = torch.cat(list(y_parts), dim=-1)
-    if split.remainder is not None:
-        # footnote 2 at segment granularity: the master runs the remainder
-        # columns' whole chain locally, on true values (acts always apply)
-        y_rem = _chain(
-            x[..., split.remainder.entry.a_i:split.remainder.entry.b_i],
-            split.remainder, weights, specs, pads, acts, apply_acts=True)
-        y = torch.cat([y, y_rem], dim=-1)
-    return y
+        with span("coded.assemble"):
+            y = torch.cat(list(y_parts), dim=-1)
+            if split.remainder is not None:
+                # footnote 2 at segment granularity: the master runs the
+                # remainder columns' whole chain locally, on true values
+                # (acts always apply)
+                rem = split.remainder
+                y_rem = _chain(x[..., rem.entry.a_i:rem.entry.b_i], rem,
+                               weights, specs, pads, acts, apply_acts=True)
+                y = torch.cat([y, y_rem], dim=-1)
+        return y
 
 
 # ---------------------------------------------------------------------------

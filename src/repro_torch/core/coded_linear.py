@@ -26,6 +26,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..kernels.skinny_gemm import skinny_gemm
+from ..telemetry.trace import span
 from .coded_conv import _count_op, gather_pieces, piece_rank
 from .coding import device_index
 from .schemes import (CodingScheme, commutes_elementwise, resolve_subset,
@@ -66,45 +67,51 @@ def coded_matmul(
     subtasks run on the worker pool and the decode consumes the first
     decodable arrivals; ``subset`` is ignored, ``assignment`` optionally
     routes per-worker piece counts (``hetero.allocate_pieces``).
-    """
-    T = x.shape[0]
-    plan = plan_token_split(T, code.k)
-    if executor is not None and hasattr(executor, "run_op"):
-        # backend seam (dist/backend.py): hand the backend the whole op —
-        # source stack + weights — so encode / piece GEMM / decode run
-        # where the backend wants them
-        from ..dist.backend import CodedOp
 
-        parts = x[: code.k * plan.w_out_p].reshape(code.k, plan.w_out_p, -1)
+    The call is one ``repro.coded.matmul`` span.
+    """
+    with span("coded.matmul"):
+        T = x.shape[0]
+        plan = plan_token_split(T, code.k)
+        if executor is not None and hasattr(executor, "run_op"):
+            # backend seam (dist/backend.py): hand the backend the whole
+            # op — source stack + weights — so encode / piece GEMM / decode
+            # run where the backend wants them
+            from ..dist.backend import CodedOp
+
+            parts = x[: code.k * plan.w_out_p].reshape(code.k,
+                                                       plan.w_out_p, -1)
+            _count_op("encode")
+            decoded = executor.run_op(
+                CodedOp("matmul", code, parts, w, assignment=assignment))
+            y = decoded.reshape(code.k * plan.w_out_p, w.shape[-1])
+            _count_op("decode")
+            if plan.remainder is not None:
+                y = torch.cat([y, x[plan.remainder.a_i :] @ w.to(x.dtype)],
+                              dim=0)
+            return y
+        w = w.to(x.dtype)
+        coded_in = _encode_tokens(code, x, plan)  # (n, T_p, d_in)
         _count_op("encode")
-        decoded = executor.run_op(
-            CodedOp("matmul", code, parts, w, assignment=assignment))
-        y = decoded.reshape(code.k * plan.w_out_p, w.shape[-1])
+        if executor is not None:
+            # legacy thunk surface: pre-seam executors and test doubles
+            decoded = executor.run(
+                code,
+                [lambda i=i: coded_in[i] @ w for i in range(code.n)],
+                assignment=assignment,
+            )  # (k, T_p, d_out)
+            y = decoded.reshape(code.k * plan.w_out_p, w.shape[-1])
+        else:
+            subset = resolve_subset(code, subset)
+            coded_out = torch.matmul(coded_in, w)  # n worker GEMMs
+            sel = coded_out.index_select(
+                0, device_index(subset, coded_out.device))
+            decoded = code.decode_from(subset, sel.reshape(len(subset), -1))
+            y = decoded.reshape(code.k * plan.w_out_p, w.shape[-1])
         _count_op("decode")
         if plan.remainder is not None:
-            y = torch.cat([y, x[plan.remainder.a_i :] @ w.to(x.dtype)], dim=0)
+            y = torch.cat([y, x[plan.remainder.a_i :] @ w], dim=0)
         return y
-    w = w.to(x.dtype)
-    coded_in = _encode_tokens(code, x, plan)  # (n, T_p, d_in)
-    _count_op("encode")
-    if executor is not None:
-        # legacy thunk surface: pre-seam executors and test doubles
-        decoded = executor.run(
-            code,
-            [lambda i=i: coded_in[i] @ w for i in range(code.n)],
-            assignment=assignment,
-        )  # (k, T_p, d_out)
-        y = decoded.reshape(code.k * plan.w_out_p, w.shape[-1])
-    else:
-        subset = resolve_subset(code, subset)
-        coded_out = torch.matmul(coded_in, w)  # n worker GEMMs
-        sel = coded_out.index_select(0, device_index(subset, coded_out.device))
-        decoded = code.decode_from(subset, sel.reshape(len(subset), -1))
-        y = decoded.reshape(code.k * plan.w_out_p, w.shape[-1])
-    _count_op("decode")
-    if plan.remainder is not None:
-        y = torch.cat([y, x[plan.remainder.a_i :] @ w], dim=0)
-    return y
 
 
 def coded_matmul_sharded(

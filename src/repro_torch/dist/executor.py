@@ -28,6 +28,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from ..core.schemes import CodingScheme, decode_blocks
+from ..telemetry.trace import span
 from .clock import Clock
 from .faults import ChurnSchedule, DelayModel, FaultPlan
 from .pool import RunHandle, RunReport, WorkerPool
@@ -98,9 +99,11 @@ class ExecHandle:
         # arrivals were posted after their stream was synchronised
         # (pool._wait_for_device), so the values exist; they stay on the
         # device they were computed on
-        stacked = torch.stack([torch.as_tensor(results[i]) for i in subset])
-        self._out = decode_blocks(scheme, subset, stacked,
-                                  chunks=self._decode_chunks)
+        with span("coded.decode"):
+            stacked = torch.stack([torch.as_tensor(results[i])
+                                   for i in subset])
+            self._out = decode_blocks(scheme, subset, stacked,
+                                      chunks=self._decode_chunks)
         return self._out
 
 

@@ -51,6 +51,7 @@ import torch
 from ..core.schemes import decode_blocks
 from ..launch.mesh import (MODEL_AXIS, LocalMesh, PiecePlacementError,
                            make_local_mesh, validate_pieces)
+from ..telemetry.trace import span
 from .clock import RealClock
 from .executor import decodable_prefix
 from .pool import Arrival, RunReport, Undecodable
@@ -182,6 +183,9 @@ class MeshExecutor:
         self.compile_count = 0
         self.graph_count = 0
         self.replay_count = 0
+        # host seconds blocked on the card: each run's stream synchronise,
+        # summed (the scheduler reads it as a delta a step)
+        self.wait_s = 0.0
         self._programs: set = set()
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self._static: dict = {}
@@ -335,7 +339,8 @@ class MeshExecutor:
         gkey = key + (op.w.data_ptr(),)
         g = self._graphs.get(gkey)
         if g is None:
-            g = self._capture(op, subset, st)
+            with span("mesh.capture"):
+                g = self._capture(op, subset, st)
             self._graphs[gkey] = g
             self.graph_count += 1
             while len(self._graphs) > MAX_GRAPHS:
@@ -352,7 +357,11 @@ class MeshExecutor:
         """Run one coded op end to end; return the decoded (k,)+piece-shape
         stack.  ``RunReport.wall_s`` == ``t_complete`` (there is no
         virtual plane) is wall time that ends once the result is on the
-        device: one stream synchronise per run."""
+        device: one stream synchronise per run, whose wait is summed into
+        ``wait_s`` (a CPU program has finished when it returns).  Spans:
+        ``repro.mesh.replay`` (the program's run: a graph replay on the
+        card, ``repro.mesh.capture`` inside it when the graph is new) and
+        ``repro.mesh.sync``."""
         scheme = op.scheme
         validate_pieces(self.mesh, scheme.n, axis=self.axis)
         subset = self._subset(scheme)
@@ -360,14 +369,18 @@ class MeshExecutor:
         if key not in self._programs:
             self._programs.add(key)
             self.compile_count += 1
+        cuda = op.x.device.type == "cuda"
         t0 = time.perf_counter()
-        if op.x.device.type == "cuda":
-            out = self._replay(op, subset, key)
-            torch.cuda.current_stream(op.x.device).synchronize()
-        else:
-            out = self.program(op, subset, op.x)
-        wall = time.perf_counter() - t0
-        self._book(scheme, subset, wall)
+        with span("mesh.replay"):
+            out = (self._replay(op, subset, key) if cuda
+                   else self.program(op, subset, op.x))
+        t1 = time.perf_counter()
+        with span("mesh.sync"):
+            if cuda:
+                torch.cuda.current_stream(op.x.device).synchronize()
+        t2 = time.perf_counter()
+        self.wait_s += t2 - t1
+        self._book(scheme, subset, t2 - t0)
         return out
 
     def _book(self, scheme, subset: tuple[int, ...], wall: float) -> None:

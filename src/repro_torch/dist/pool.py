@@ -69,6 +69,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from ..telemetry.trace import span
 from .clock import Clock, FakeClock, RealClock
 from .faults import DelayModel, FaultPlan
 
@@ -629,7 +630,9 @@ class WorkerPool:
             try:
                 t0 = time.perf_counter()
                 # the real subtask compute, on this worker's own stream
-                result, stream = _run_piece(piece.fn, ctx.handoff, stream)
+                with span("pool.piece"):
+                    result, stream = _run_piece(piece.fn, ctx.handoff,
+                                                stream)
                 elapsed = time.perf_counter() - t0
             except Exception as e:  # master re-raises
                 ctx.post(_Event("error", ctx.epoch, w, piece.idx, t_free,
@@ -808,7 +811,9 @@ class WorkerPool:
                          n + len(extras), wall0, events)
 
     def _collect(self, h: RunHandle) -> tuple[dict[int, Any], RunReport]:
-        """Master loop for one submitted run (RunHandle.result)."""
+        """Master loop for one submitted run (RunHandle.result); each wait
+        for a worker's event is a ``repro.pool.wait`` span, as each piece
+        a worker runs is a ``repro.pool.piece`` one on its thread."""
         st, ctx, report, until, viable = h._st, h._ctx, h._report, h._until, \
             h._viable
         try:
@@ -835,7 +840,8 @@ class WorkerPool:
                     raise RuntimeError(
                         "pool exhausted: every piece arrived but the "
                         f"completion rule never accepted (arrived={st.order})")
-                ev = self._next_event(h._events)
+                with span("pool.wait"):
+                    ev = self._next_event(h._events)
                 if ev.kind == "error":
                     raise RuntimeError(
                         f"worker {ev.worker} raised on piece {ev.piece}"

@@ -35,6 +35,7 @@ from ..core.netplan import (LayerInfo, LocalStep, NetPlan, SegmentStep,
                             compile_plan)
 from ..core.schemes import CodingScheme, get_scheme
 from ..core.splitting import ConvSpec
+from ..telemetry.trace import span
 
 __all__ = ["LayerInfo", "vgg16_conv_specs", "resnet18_conv_specs",
            "is_type1", "type1_threshold", "maxpool2d", "forward_plan",
@@ -188,7 +189,8 @@ def forward_plan(plan: NetPlan, convs: Sequence[torch.Tensor], x: torch.Tensor,
     Segments execute ``run_segment`` (one encode, resident chains, one
     decode; interior activations inside the chains); the master applies
     each segment's final activation and pooling post-decode, and runs
-    LocalStep layers itself.  ``convs[i]`` is layer i's OIHW weight.
+    LocalStep layers itself, each of these a ``repro.cnn.layer`` span.
+    ``convs[i]`` is layer i's OIHW weight.
     """
     for step in plan.steps:
         sub = plan.layers[step.start:step.stop]
@@ -199,11 +201,13 @@ def forward_plan(plan: NetPlan, convs: Sequence[torch.Tensor], x: torch.Tensor,
                 [li.spec for li in sub], [li.pad for li in sub],
                 [li.act for li in sub], split=step.split, subset=subset,
                 executor=executor, assignment=assignment)
-            x = _finish_layer(y, sub[-1])
+            with span("cnn.layer"):
+                x = _finish_layer(y, sub[-1])
         else:
             for li, w in zip(sub, ws):
-                x = _finish_layer(conv2d(_pad_hw(x, li.pad), w,
-                                         li.spec.stride), li)
+                with span("cnn.layer"):
+                    x = _finish_layer(conv2d(_pad_hw(x, li.pad), w,
+                                             li.spec.stride), li)
     return x
 
 
@@ -379,19 +383,22 @@ def vgg16_forward(
     plan: NetPlan | None = None,
     executor=None,
 ) -> torch.Tensor:
-    """Runnable VGG16: 13-conv stack through the compiled segment plan."""
+    """Runnable VGG16: 13-conv stack through the compiled segment plan
+    (master-run layers are ``repro.cnn.layer`` spans), then the classifier
+    (``repro.cnn.head``)."""
     layers = vgg16_conv_specs(image=x.shape[-1], params=sys_params)
     plan = _resolve_plan(layers, plan, scheme, code, n, sys_params)
     if plan is None:
         h = x
         for li, w in zip(layers, params["convs"]):
-            h = _finish_layer(conv2d(_pad_hw(h, li.pad), w, li.spec.stride),
-                              li)
+            with span("cnn.layer"):
+                h = _finish_layer(conv2d(_pad_hw(h, li.pad), w,
+                                         li.spec.stride), li)
     else:
         h = forward_plan(plan, params["convs"], x, subset=subset,
                          executor=executor)
-    h = h.reshape(h.shape[0], -1)
-    return h @ params["head"]
+    with span("cnn.head"):
+        return h.reshape(h.shape[0], -1) @ params["head"]
 
 
 def init_resnet18(gen: torch.Generator, n_classes: int = 10,

@@ -25,6 +25,11 @@ The dense FFN's GEMMs are the paper's type-1 operators: with ``coded_n``
 set they run through ``core/coded_linear.py`` (split, encode, n piece
 GEMMs, decode at the k-th arrival) — on the worker pool when an executor
 is installed with :func:`coded_executor`.
+
+Serving's :func:`prefill` and :func:`decode_step` run each layer in a
+``repro.model.mamba`` or ``repro.model.attn`` span (a shared attention
+block, FFN included, is its own ``attn`` span) and the final norm and LM
+head in ``repro.model.head`` (``telemetry.trace.span``).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from .._device import resolve_device
+from ..telemetry.trace import span
 from .attention import (blockwise_causal_attention, chunk_attention,
                         decode_attention, flash_causal_attention)
 from .common import (gather_fsdp, lecun_init, lookup, rms_norm, rope,
@@ -634,21 +640,25 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, token=None,
         entry = dict(cache["layers"][i])
         layer = gather_fsdp(layer)
         if cfg.layer_kind(i) == "mamba":
-            x, st = _mamba_block_decode(cfg, layer, x, entry, pos)
-            x = settle(x)
+            with span("model.mamba"):
+                x, st = _mamba_block_decode(cfg, layer, x, entry, pos)
+                x = settle(x)
             entry.update(st)
             if cfg.has_shared_attn(i):
-                x, entry["shared_kv"] = _attn_block_decode(
-                    cfg, gather_fsdp(params["shared_attn"]), x,
-                    entry["shared_kv"], pos, "ffn")
-                x = settle(x)
+                with span("model.attn"):
+                    x, entry["shared_kv"] = _attn_block_decode(
+                        cfg, gather_fsdp(params["shared_attn"]), x,
+                        entry["shared_kv"], pos, "ffn")
+                    x = settle(x)
         else:
-            x, entry["kv"] = _attn_block_decode(
-                cfg, layer, x, entry["kv"], pos, _layer_ffn_key(cfg, i))
-            x = settle(x)
+            with span("model.attn"):
+                x, entry["kv"] = _attn_block_decode(
+                    cfg, layer, x, entry["kv"], pos, _layer_ffn_key(cfg, i))
+                x = settle(x)
         new_layers.append(entry)
-    x = rms_norm(x, params["final_norm"])
-    logits = _lm_head(cfg, params, x)
+    with span("model.head"):
+        x = rms_norm(x, params["final_norm"])
+        logits = _lm_head(cfg, params, x)
     return logits, {"layers": new_layers, "pos": pos + 1}
 
 
@@ -691,29 +701,36 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, embeds=None,
         entry = {}
         layer = gather_fsdp(layer)
         if cfg.layer_kind(i) == "mamba":
-            y, st = mamba_forward(layer["mamba"], rms_norm(x, layer["norm"]),
-                                  cfg.ssm_dims, cfg.ssm_chunk)
-            x = settle(x + y)
+            with span("model.mamba"):
+                y, st = mamba_forward(layer["mamba"],
+                                      rms_norm(x, layer["norm"]),
+                                      cfg.ssm_dims, cfg.ssm_chunk)
+                x = settle(x + y)
             entry["mamba"] = {"conv": st.conv, "ssm": st.ssm}
             if cfg.has_shared_attn(i):
-                x, entry["shared_kv"] = _prefill_attn(
-                    cfg, gather_fsdp(params["shared_attn"]), x, positions,
-                    win, S, "ffn")
-                x = settle(x)
+                with span("model.attn"):
+                    x, entry["shared_kv"] = _prefill_attn(
+                        cfg, gather_fsdp(params["shared_attn"]), x,
+                        positions, win, S, "ffn")
+                    x = settle(x)
         else:
-            x, entry["kv"] = _prefill_attn(cfg, layer, x, positions, win, S,
-                                           _layer_ffn_key(cfg, i))
-            x = settle(x)
+            with span("model.attn"):
+                x, entry["kv"] = _prefill_attn(cfg, layer, x, positions, win,
+                                               S, _layer_ffn_key(cfg, i))
+                x = settle(x)
         layers.append(entry)
-    x = rms_norm(x, params["final_norm"])
+    with span("model.head"):
+        x = rms_norm(x, params["final_norm"])
+        if lens is None:
+            logits = _lm_head(cfg, params, x[:, -1])
+        else:
+            lens = torch.as_tensor(lens, device=dev).to(torch.int32)
+            x_last = x[torch.arange(B, device=dev), lens.long() - 1]
+            logits = _lm_head(cfg, params, x_last)
     if lens is None:
-        logits = _lm_head(cfg, params, x[:, -1])
         cache = {"layers": layers,
                  "pos": torch.tensor(T, dtype=torch.int32, device=dev)}
     else:
-        lens = torch.as_tensor(lens, device=dev).to(torch.int32)
-        x_last = x[torch.arange(B, device=dev), lens.long() - 1]
-        logits = _lm_head(cfg, params, x_last)
         cache = {"layers": layers, "pos": lens}
     return logits[:, None], cache
 

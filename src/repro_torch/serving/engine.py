@@ -44,6 +44,7 @@ from .._device import resolve_device
 from ..models.model import (ModelConfig, _coded_scheme, coded_executor,
                             decode_step, init_cache, init_params, prefill,
                             prefill_resume, supports_prefill_pack)
+from ..telemetry.trace import span
 
 __all__ = ["Request", "Completion", "Engine", "cache_cat", "cache_take"]
 
@@ -158,6 +159,13 @@ class Engine:
         self.device = params["embed"].device
         self.max_batch = max_batch
         self.executor = executor
+        # real-clock counters of the step-level API, cumulative (the
+        # scheduler reads them as deltas a step): host seconds blocked on
+        # the card while the sampled tokens are copied out, and the prefill
+        # calls with their prompt tokens
+        self.wait_s = 0.0
+        self.prefill_calls = 0
+        self.prefill_tokens = 0
         self._bind_steps()
         self._warm_decode()
 
@@ -208,6 +216,21 @@ class Engine:
     def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
         return logits[..., : self.cfg.vocab].argmax(-1)
 
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        """The greedy pick at the last position, copied to the host: the
+        copy waits for the call's work on the card, and that wait is
+        summed into ``wait_s`` (a ``repro.engine.sample`` span)."""
+        with span("engine.sample"):
+            nxt = self._greedy(logits)[:, 0]
+            t0 = time.perf_counter()
+            out = nxt.cpu().numpy()
+            self.wait_s += time.perf_counter() - t0
+        return out
+
+    def _count_prefill(self, tokens: int) -> None:
+        self.prefill_calls += 1
+        self.prefill_tokens += int(tokens)
+
     def generate(self, requests: Sequence[Request]) -> list[Completion]:
         t0 = time.perf_counter()
         out: list[Completion] = []
@@ -233,29 +256,32 @@ class Engine:
     # -- step-level API ------------------------------------------------------
     # One model step each; callers enter `executor_ctx()` around a step so
     # coded GEMMs reach the pool, and compose lanes with cache_cat /
-    # cache_take.
+    # cache_take.  A prefill is a `repro.engine.prefill` span, a decode
+    # step a `repro.engine.decode` one.
 
     def prefill_batch(self, prompts: np.ndarray, max_seq: int
                       ) -> tuple[np.ndarray, dict]:
         """Prefill b equal-length prompts: (b, T) int -> ((b,) first
         generated tokens, cache with per-lane (b,) positions sized for
         ``max_seq``)."""
-        toks = self._tokens(prompts)
-        b, T = toks.shape
-        logits, cache = self._prefill(self.params, toks, max_seq)
-        nxt = self._greedy(logits)
-        cache = {**cache, "pos": torch.full((b,), T, dtype=torch.int32,
-                                            device=self.device)}
-        return nxt[:, 0].cpu().numpy(), cache
+        with span("engine.prefill"):
+            toks = self._tokens(prompts)
+            b, T = toks.shape
+            self._count_prefill(b * T)
+            logits, cache = self._prefill(self.params, toks, max_seq)
+            cache = {**cache, "pos": torch.full((b,), T, dtype=torch.int32,
+                                                device=self.device)}
+            return self._sample(logits), cache
 
     def decode_batch(self, cache: dict, tokens: np.ndarray
                      ) -> tuple[np.ndarray, dict]:
         """One decode step for the whole running batch: (B,) last tokens ->
         ((B,) next tokens, updated cache).  The step's FFN GEMMs see the
         stacked (B, d) token batch: ONE coded dispatch per GEMM."""
-        toks = self._tokens(tokens)[:, None]
-        logits, cache = self._decode(self.params, cache, toks)
-        return self._greedy(logits)[:, 0].cpu().numpy(), cache
+        with span("engine.decode"):
+            toks = self._tokens(tokens)[:, None]
+            logits, cache = self._decode(self.params, cache, toks)
+            return self._sample(logits), cache
 
     # -- prefill-efficient serving ------------------------------------------
     # Each call's sampled tokens leave the device once, at its end (the
@@ -291,14 +317,16 @@ class Engine:
         lens = np.asarray([len(p) for p in prompts], np.int32)
         if lens.min() < 1:
             raise ValueError("prefill_packed needs non-empty prompts")
-        T = int(lens.max())
-        toks = np.zeros((len(lens), T), np.int32)
-        for j, p in enumerate(prompts):
-            toks[j, : lens[j]] = np.asarray(p, np.int32)
-        logits, cache = self._prefill_pack(
-            self.params, self._tokens(toks),
-            torch.as_tensor(lens, device=self.device), max_seq)
-        return self._greedy(logits)[:, 0].cpu().numpy(), cache
+        with span("engine.prefill"):
+            T = int(lens.max())
+            toks = np.zeros((len(lens), T), np.int32)
+            for j, p in enumerate(prompts):
+                toks[j, : lens[j]] = np.asarray(p, np.int32)
+            self._count_prefill(lens.sum())
+            logits, cache = self._prefill_pack(
+                self.params, self._tokens(toks),
+                torch.as_tensor(lens, device=self.device), max_seq)
+            return self._sample(logits), cache
 
     def new_stream_cache(self, max_seq: int, batch: int = 1) -> dict:
         """Empty ring cache for a chunked-prefill stream (scalar pos 0):
@@ -323,8 +351,10 @@ class Engine:
             raise ValueError(
                 f"chunk overruns the ring cache: pos {pos0} + chunk "
                 f"{toks.shape[1]} > cache extent {S}")
-        logits, cache = self._resume(self.params, cache, toks)
-        return self._greedy(logits)[:, 0].cpu().numpy(), cache
+        with span("engine.prefill"):
+            self._count_prefill(toks.numel())
+            logits, cache = self._resume(self.params, cache, toks)
+            return self._sample(logits), cache
 
     def kv_prefix(self, cache: dict, lane: int, t0: int, t1: int) -> list:
         """One lane's KV for positions [t0, t1) out of a batch cache — the

@@ -31,7 +31,13 @@ Two time planes, mirroring the pool (dist/clock.py):
   call costs its wall-clock time on the same relative timeline.  Real, but
   not deterministic; tests use virtual.  Every engine call returns its
   sampled tokens as host numpy, and that copy waits for the call's device
-  work, so a call's wall time covers its work on the card.
+  work, so a call's wall time covers its work on the card.  Each
+  :class:`StepRecord` also takes this plane's own counters: the host's
+  waits on the card, the scheduler's host work between calls, and the
+  step's prefill calls and tokens.  While a torch profiler records, a step
+  is a ``repro.serve.step`` span holding ``repro.serve.admit``,
+  ``repro.serve.join`` (the caches' concatenation and selection) and
+  ``repro.serve.retire`` ones beside the engine's calls.
 
 Prefill is the other half of the latency story (DESIGN.md §14), and three
 opt-outable mechanisms attack it:
@@ -59,6 +65,7 @@ from typing import Callable, Sequence
 import numpy as np
 
 from ..dist.faults import ChurnSchedule, StragglerDrift
+from ..telemetry.trace import span
 from .engine import Completion, Engine, Request, cache_cat, cache_take
 from .prefix_cache import PrefixCache
 
@@ -145,6 +152,18 @@ class StepRecord:
     prefix_hit_tokens: int = 0  # prompt positions restored from the cache
     cache_bytes: int = 0        # resident prefix-cache bytes after the step
     cache_evictions: int = 0    # prefix-cache blocks evicted this step
+    # -- real-clock telemetry: measured on the host's clock (perf_counter),
+    # always on; 0 on the virtual plane, whose records stay pure functions
+    # of the seeds
+    wait_s: float = 0.0     # host seconds blocked on the card in the step's
+    #                         calls: the mesh's per-run synchronise
+    #                         (MeshExecutor.wait_s) and the sampled tokens'
+    #                         copy to the host (Engine.wait_s)
+    sched_s: float = 0.0    # the step's wall, its start to its record, less
+    #                         its model calls' walls: the scheduler's own
+    #                         host work (admission, cache joins, retirement)
+    prefill_calls: int = 0   # the engine's prefill calls in the step
+    prefill_tokens: int = 0  # their prompt tokens
 
 
 @dataclasses.dataclass
@@ -330,6 +349,7 @@ class ServingScheduler:
         # and each step emits one "step" span — piece ⊂ run ⊂ step.
         self.trace = trace
         self._step_master_s = 0.0
+        self._step_call_s = 0.0  # wall seconds of the step's model calls
 
     # -- internals ---------------------------------------------------------
     def _timed_call(self, fn: Callable, *args, at: float | None = None
@@ -356,6 +376,7 @@ class ServingScheduler:
             out = fn(*args)
             wall = time.perf_counter() - w0
             self._step_master_s += wall
+            self._step_call_s += wall
             return out, wall
         runs = []
         prev = ex.on_report
@@ -379,6 +400,7 @@ class ServingScheduler:
             wall = time.perf_counter() - w0
         finally:
             ex.on_report = prev
+        self._step_call_s += wall
         if not self._virtual:
             self._step_master_s += max(
                 wall - sum(r.wall_s for r in runs), 0.0)
@@ -414,6 +436,27 @@ class ServingScheduler:
         if ex is None:
             return 0, 0
         return ex.pool.dispatch_count, ex.run_count
+
+    def _real_counters(self) -> tuple:
+        """(perf_counter, host seconds blocked on the card, prefill calls,
+        prefill tokens) now: the engine's cumulative counters, plus the
+        mesh's synchronise waits (a pool keeps none)."""
+        eng = self.engine
+        return (time.perf_counter(),
+                eng.wait_s + getattr(eng.executor, "wait_s", 0.0),
+                eng.prefill_calls, eng.prefill_tokens)
+
+    def _real_fields(self, start: tuple) -> dict:
+        """The step's real-clock :class:`StepRecord` fields from
+        ``_real_counters()`` read at its start; none on the virtual plane."""
+        if self._virtual:
+            return {}
+        now = self._real_counters()
+        return dict(
+            wait_s=now[1] - start[1],
+            sched_s=max(now[0] - start[0] - self._step_call_s, 0.0),
+            prefill_calls=now[2] - start[2],
+            prefill_tokens=now[3] - start[3])
 
     def _cache_counters(self) -> tuple:
         if self.prefix_cache is None:
@@ -563,160 +606,179 @@ class ServingScheduler:
         ex = self.engine.executor
         with self.engine.executor_ctx():
             while queue or lanes or streams:
-                if (not lanes and not streams and queue
-                        and queue[0].arrival_s > t):
-                    t = queue[0].arrival_s  # idle system: jump to next arrival
-                t_start = t
-                self._arm_step(step)
-                step_reports.clear()
-                self._step_master_s = 0.0
-                d0, r0 = self._counters()
-                hit0, ev0 = self._cache_counters()
-                # -- admission: arrived requests fill the free lanes ------
-                n_ready = 0
-                while (n_ready < len(queue)
-                       and queue[n_ready].arrival_s <= t):
-                    n_ready += 1
-                room = self.max_batch - len(lanes) - len(streams)
-                admit = self._admit_order(queue[:n_ready])[:max(room, 0)]
-                # remove by identity: dataclass equality would compare the
-                # ndarray prompt fields and raise on ambiguous truth value
-                queue = [q for q in queue
-                         if not any(q is r for r in admit)]
-                qdepth = n_ready - len(admit)
-                # -- elastic membership: scripted churn, then autoscaling,
-                #    applied at the step boundary while the pool is idle
-                churn_idx, joined, left = self._apply_membership(
-                    churn_idx, t_start, qdepth, membership)
-                packed_tok = packed_pad = n_chunks = 0
-                if self.overlap and (admit or lanes):
-                    (lanes, cache, retired, n_decoded, pf_d, pf_r,
-                     i_pf, i_dec, t) = self._overlap_step(
-                        lanes, cache, admit, t_start, records, completions,
-                        step_reports)
-                else:
-                    # -- classify the admission: prefix-cache hits and
-                    #    long prompts become chunk streams; the rest
-                    #    prefill cold this step (packed: ONE call)
-                    new_caches = []
-                    retired = 0
-                    cold = []
-                    for r in admit:
-                        s = self._open_stream(r, t_start, records)
-                        (cold.append(r) if s is None
-                         else streams.append(s))
-                    # -- join-at-prefill for the cold admission ----------
-                    groups = ([cold] if self.packed and cold
-                              else _length_groups(cold))
-                    for group in groups:
-                        if self.packed:
-                            (first, gcache), dt = self._timed_call(
-                                self.engine.prefill_packed,
-                                [r.prompt for r in group], self.max_seq,
-                                at=t)
-                            tmax = max(len(r.prompt) for r in group)
-                            real = sum(len(r.prompt) for r in group)
-                            packed_tok += real
-                            packed_pad += len(group) * tmax - real
-                        else:
-                            prompts = np.stack([r.prompt for r in group])
-                            (first, gcache), dt = self._timed_call(
-                                self.engine.prefill_batch, prompts,
-                                self.max_seq, at=t)
-                        t += dt
-                        glanes = []
-                        for j, r in enumerate(group):
-                            self._insert_prefix(r.prompt, gcache, j)
-                            rec = RequestRecord(r.rid, len(r.prompt),
-                                                r.max_new, r.arrival_s,
-                                                admit_s=t_start,
-                                                first_token_s=t)
-                            lane = _Lane(r, rec, [int(first[j])])
-                            records.append(rec)
-                            glanes.append(lane)
-                        done = [j for j, ln in enumerate(glanes)
-                                if self._finished(ln)]
-                        for j in done:
-                            self._retire(glanes[j], t, completions)
-                            retired += 1
-                        keep = [j for j in range(len(glanes))
-                                if j not in done]
-                        if keep:
-                            lanes.extend(glanes[j] for j in keep)
-                            new_caches.append(
-                                gcache if len(keep) == len(glanes)
-                                else cache_take(gcache, keep))
-                    # -- advance every prefill stream by one chunk -------
-                    if streams:
-                        (streams, n_chunks, retired, t) = self._advance_streams(
-                            streams, lanes, new_caches, retired, t,
-                            completions)
-                    d_pf, r_pf = self._counters()
-                    pf_d, pf_r = d_pf - d0, r_pf - r0
-                    i_pf = (0, len(step_reports))
-                    # -- one decode step for the whole running batch ------
-                    n_decoded = len(lanes)
-                    if lanes:
-                        parts = (([cache] if cache is not None else [])
-                                 + new_caches)
-                        cache = cache_cat(parts)
-                        last = np.asarray([ln.tokens[-1] for ln in lanes],
-                                          np.int32)
-                        (nxt, cache), dt = self._timed_call(
-                            self.engine.decode_batch, cache, last, at=t)
-                        t += dt
-                        for j, ln in enumerate(lanes):
-                            ln.tokens.append(int(nxt[j]))
-                        done = [j for j, ln in enumerate(lanes)
-                                if self._finished(ln)]
-                        for j in done:
-                            self._retire(lanes[j], t, completions)
-                            retired += 1
-                        if done:
-                            keep = [j for j in range(len(lanes))
-                                    if j not in done]
-                            lanes = [lanes[j] for j in keep]
-                            cache = cache_take(cache, keep) if keep else None
+                with span("serve.step"):
+                    real0 = self._real_counters()
+                    if (not lanes and not streams and queue
+                            and queue[0].arrival_s > t):
+                        # idle system: jump to next arrival
+                        t = queue[0].arrival_s
+                    t_start = t
+                    self._arm_step(step)
+                    step_reports.clear()
+                    self._step_master_s = 0.0
+                    self._step_call_s = 0.0
+                    d0, r0 = self._counters()
+                    hit0, ev0 = self._cache_counters()
+                    # -- admission: arrived requests fill the free lanes --
+                    with span("serve.admit"):
+                        n_ready = 0
+                        while (n_ready < len(queue)
+                               and queue[n_ready].arrival_s <= t):
+                            n_ready += 1
+                        room = self.max_batch - len(lanes) - len(streams)
+                        admit = self._admit_order(
+                            queue[:n_ready])[:max(room, 0)]
+                        # remove by identity: dataclass equality would
+                        # compare the ndarray prompt fields and raise on
+                        # ambiguous truth value
+                        queue = [q for q in queue
+                                 if not any(q is r for r in admit)]
+                        qdepth = n_ready - len(admit)
+                    # -- elastic membership: scripted churn, then autoscaling,
+                    #    applied at the step boundary while the pool is idle
+                    churn_idx, joined, left = self._apply_membership(
+                        churn_idx, t_start, qdepth, membership)
+                    packed_tok = packed_pad = n_chunks = 0
+                    if self.overlap and (admit or lanes):
+                        (lanes, cache, retired, n_decoded, pf_d, pf_r,
+                         i_pf, i_dec, t) = self._overlap_step(
+                            lanes, cache, admit, t_start, records,
+                            completions, step_reports)
                     else:
-                        cache = None
-                    i_dec = (i_pf[1], len(step_reports))
-                d1, r1 = self._counters()
-                span_s, busy_s, serial_s, overlap_s = self._pool_spans(
-                    step_reports, grouped=self.overlap)
-                steps.append(StepRecord(
-                    step, t_start, t, batch=n_decoded,
-                    admitted=len(admit), retired=retired, queue_depth=qdepth,
-                    dispatches=d1 - d0, runs=r1 - r0,
-                    prefill_dispatches=pf_d, prefill_runs=pf_r,
-                    master_s=self._step_master_s,
-                    span_s=span_s, busy_s=busy_s, serial_s=serial_s,
-                    overlap_s=overlap_s,
-                    prefill_span_s=self._pool_spans(
-                        step_reports[i_pf[0]:i_pf[1]],
-                        grouped=self.overlap)[0],
-                    decode_span_s=self._pool_spans(
-                        step_reports[i_dec[0]:i_dec[1]],
-                        grouped=self.overlap)[0],
-                    alive=(len(ex.pool.alive_workers())
-                           if ex is not None else 0),
-                    joined=joined, left=left,
-                    coded_n=self.engine.cfg.coded_n,
-                    coded_k=self.engine.cfg.coded_k,
-                    packed_tokens=packed_tok, packed_pad_tokens=packed_pad,
-                    prefill_chunks=n_chunks,
-                    prefix_hit_tokens=self._cache_counters()[0] - hit0,
-                    cache_bytes=(self.prefix_cache.bytes
-                                 if self.prefix_cache is not None else 0),
-                    cache_evictions=self._cache_counters()[1] - ev0))
-                if self.trace is not None:
-                    from ..telemetry.trace import Span
-                    self.trace.span(Span(
-                        "step", "serve", t_start, max(t - t_start, 0.0),
-                        "scheduler",
-                        {"step": step, "batch": n_decoded,
-                         "admitted": len(admit), "retired": retired,
-                         "dispatches": d1 - d0, "runs": r1 - r0,
-                         "master_s": self._step_master_s}))
+                        # -- classify the admission: prefix-cache hits and
+                        #    long prompts become chunk streams; the rest
+                        #    prefill cold this step (packed: ONE call)
+                        new_caches = []
+                        retired = 0
+                        cold = []
+                        with span("serve.admit"):
+                            for r in admit:
+                                s = self._open_stream(r, t_start, records)
+                                (cold.append(r) if s is None
+                                 else streams.append(s))
+                        # -- join-at-prefill for the cold admission -------
+                        groups = ([cold] if self.packed and cold
+                                  else _length_groups(cold))
+                        for group in groups:
+                            if self.packed:
+                                (first, gcache), dt = self._timed_call(
+                                    self.engine.prefill_packed,
+                                    [r.prompt for r in group], self.max_seq,
+                                    at=t)
+                                tmax = max(len(r.prompt) for r in group)
+                                real = sum(len(r.prompt) for r in group)
+                                packed_tok += real
+                                packed_pad += len(group) * tmax - real
+                            else:
+                                prompts = np.stack([r.prompt for r in group])
+                                (first, gcache), dt = self._timed_call(
+                                    self.engine.prefill_batch, prompts,
+                                    self.max_seq, at=t)
+                            t += dt
+                            glanes = []
+                            with span("serve.admit"):
+                                for j, r in enumerate(group):
+                                    self._insert_prefix(r.prompt, gcache, j)
+                                    rec = RequestRecord(
+                                        r.rid, len(r.prompt), r.max_new,
+                                        r.arrival_s, admit_s=t_start,
+                                        first_token_s=t)
+                                    lane = _Lane(r, rec, [int(first[j])])
+                                    records.append(rec)
+                                    glanes.append(lane)
+                            with span("serve.retire"):
+                                done = [j for j, ln in enumerate(glanes)
+                                        if self._finished(ln)]
+                                for j in done:
+                                    self._retire(glanes[j], t, completions)
+                                    retired += 1
+                            keep = [j for j in range(len(glanes))
+                                    if j not in done]
+                            if keep:
+                                lanes.extend(glanes[j] for j in keep)
+                                with span("serve.join"):
+                                    new_caches.append(
+                                        gcache if len(keep) == len(glanes)
+                                        else cache_take(gcache, keep))
+                        # -- advance every prefill stream by one chunk ----
+                        if streams:
+                            (streams, n_chunks, retired,
+                             t) = self._advance_streams(
+                                streams, lanes, new_caches, retired, t,
+                                completions)
+                        d_pf, r_pf = self._counters()
+                        pf_d, pf_r = d_pf - d0, r_pf - r0
+                        i_pf = (0, len(step_reports))
+                        # -- one decode step for the whole running batch ---
+                        n_decoded = len(lanes)
+                        if lanes:
+                            parts = (([cache] if cache is not None else [])
+                                     + new_caches)
+                            with span("serve.join"):
+                                cache = cache_cat(parts)
+                            last = np.asarray(
+                                [ln.tokens[-1] for ln in lanes], np.int32)
+                            (nxt, cache), dt = self._timed_call(
+                                self.engine.decode_batch, cache, last, at=t)
+                            t += dt
+                            with span("serve.retire"):
+                                for j, ln in enumerate(lanes):
+                                    ln.tokens.append(int(nxt[j]))
+                                done = [j for j, ln in enumerate(lanes)
+                                        if self._finished(ln)]
+                                for j in done:
+                                    self._retire(lanes[j], t, completions)
+                                    retired += 1
+                            if done:
+                                keep = [j for j in range(len(lanes))
+                                        if j not in done]
+                                lanes = [lanes[j] for j in keep]
+                                with span("serve.join"):
+                                    cache = (cache_take(cache, keep) if keep
+                                             else None)
+                        else:
+                            cache = None
+                        i_dec = (i_pf[1], len(step_reports))
+                    d1, r1 = self._counters()
+                    span_s, busy_s, serial_s, overlap_s = self._pool_spans(
+                        step_reports, grouped=self.overlap)
+                    steps.append(StepRecord(
+                        step, t_start, t, batch=n_decoded,
+                        admitted=len(admit), retired=retired,
+                        queue_depth=qdepth,
+                        dispatches=d1 - d0, runs=r1 - r0,
+                        prefill_dispatches=pf_d, prefill_runs=pf_r,
+                        master_s=self._step_master_s,
+                        span_s=span_s, busy_s=busy_s, serial_s=serial_s,
+                        overlap_s=overlap_s,
+                        prefill_span_s=self._pool_spans(
+                            step_reports[i_pf[0]:i_pf[1]],
+                            grouped=self.overlap)[0],
+                        decode_span_s=self._pool_spans(
+                            step_reports[i_dec[0]:i_dec[1]],
+                            grouped=self.overlap)[0],
+                        alive=(len(ex.pool.alive_workers())
+                               if ex is not None else 0),
+                        joined=joined, left=left,
+                        coded_n=self.engine.cfg.coded_n,
+                        coded_k=self.engine.cfg.coded_k,
+                        packed_tokens=packed_tok,
+                        packed_pad_tokens=packed_pad,
+                        prefill_chunks=n_chunks,
+                        prefix_hit_tokens=self._cache_counters()[0] - hit0,
+                        cache_bytes=(self.prefix_cache.bytes
+                                     if self.prefix_cache is not None else 0),
+                        cache_evictions=self._cache_counters()[1] - ev0,
+                        **self._real_fields(real0)))
+                    if self.trace is not None:
+                        from ..telemetry.trace import Span
+                        self.trace.span(Span(
+                            "step", "serve", t_start, max(t - t_start, 0.0),
+                            "scheduler",
+                            {"step": step, "batch": n_decoded,
+                             "admitted": len(admit), "retired": retired,
+                             "dispatches": d1 - d0, "runs": r1 - r0,
+                             "master_s": self._step_master_s}))
                 step += 1
         completions.sort(key=lambda c: c.rid)
         records.sort(key=lambda r: r.rid)
@@ -857,6 +919,7 @@ class ServingScheduler:
                 pf_out.append((group, first, gcache, n_calls, end))
             i_pf = (i_pf0, len(step_reports))
         wall = time.perf_counter() - w0
+        self._step_call_s += wall
         d_end, r_end = self._counters()
         pf_d, pf_r = d_end - d_mid, r_end - r_mid
         if self._virtual:

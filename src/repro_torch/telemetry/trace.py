@@ -24,20 +24,51 @@ Exporters:
 * :func:`to_chrome_trace` — Chrome-trace / Perfetto JSON ("traceEvents"
   with complete ``ph="X"`` events, microsecond timestamps, one named
   thread per worker), loadable in ``chrome://tracing`` or ui.perfetto.dev.
+
+Beside the virtual plane, :func:`span` marks the port's stages on the
+real clock: while a torch profiler records, each is a
+``record_function("repro.<name>")`` range in the profiler's own trace, on
+the clock and thread of the kernels and ops it holds; otherwise it costs
+one flag read.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 from typing import Iterable, Protocol, runtime_checkable
 
+import torch
+from torch.autograd import profiler as _profiler
+
 __all__ = [
+    "span",
     "Span",
     "TraceSink",
     "TraceRecorder",
     "to_jsonl",
     "to_chrome_trace",
 ]
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A live span ``repro.<name>`` of the program, for ``with``.
+
+    While a torch profiler records (the profiler's process-wide flag, set
+    by ``torch.profiler.profile`` on whichever thread started it), this
+    opens ``torch.profiler.record_function("repro." + name)``: the span
+    then lies in the same trace as the ops and kernels it holds, on the
+    same clock and thread.  A thread the profiler does not follow (a
+    worker thread under a profiler that records its own thread only)
+    records nothing.  Otherwise it returns one shared no-op context:
+    nothing is built and ``record_function`` is not called.
+    """
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function("repro." + name)
+    return _OFF
 
 
 @dataclasses.dataclass(frozen=True)
