@@ -54,6 +54,16 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
                    ``MeshExecutor`` with the same faults, bit for bit equal
                    to the pool's, a graph replay equal to the eager program,
                    and every scheme x fault x op at small shapes.
+3a. ``mesh_async`` — ``MeshExecutor`` does not wait for its runs: a
+                   prefill-sized coded matmul, (1797 x 2048) @ (2048 x
+                   8192), MDS (10, 6), dead 1, straggler 2.  The stream is
+                   still busy when ``run_op`` returns; the result is bit
+                   for bit the same run followed by a synchronise, and
+                   within the decode's roundoff of the uncoded product;
+                   ``settle()`` delivers one report a run, each with its
+                   time on the card; a shared block's three FFN runs issued
+                   back to back count ``queued_runs`` >= 2; a run on
+                   another stream is refused.
 4. ``vgg16``     — the main path: VGG16 at 224x224, f32, seeded random
                    weights, served through ``vgg16_forward`` on a worker pool
                    (requests of batch 1, 4, 1 on the virtual clock, two
@@ -215,9 +225,9 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 SEED = 0
 N_WORKERS = 10
-ALL_PHASES = ("device", "kernels", "coded_ops", "vgg16", "zamba2",
-              "zamba2_mesh", "adaptive", "serving", "families", "train",
-              "sharded", "dryrun")
+ALL_PHASES = ("device", "kernels", "coded_ops", "mesh_async", "vgg16",
+              "zamba2", "zamba2_mesh", "adaptive", "serving", "families",
+              "train", "sharded", "dryrun")
 
 
 def emit(obj: dict) -> None:
@@ -1583,6 +1593,113 @@ def phase_coded_ops(torch) -> None:
           "mesh": "MeshExecutor(dead=(1,), stragglers=(2,)): same subset, "
                   "same bytes; a graph replay equals the eager program",
           "mesh_matrix": mesh_matrix(torch)})
+
+
+def phase_mesh_async(torch) -> None:
+    """The one-program backend issues a run and returns without waiting for
+    it, at the size of a served prefill's coded FFN: 1,797 tokens (the
+    benchmark's tokens a prefill call) through Zamba2-1.2B's FFN widths,
+    d 2048, F 8192, f32, MDS (10, 6), worker 1 dead, worker 2 straggling."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.core import MDSScheme, coded_matmul
+    from repro_torch.dist import MeshExecutor
+
+    T, D, F = 1797, 2048, 8192
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = _rand(torch, gen, (T, D), torch.float32)
+    w_in = _rand(torch, gen, (D, F), torch.float32, D ** -0.5)
+    w_gate = _rand(torch, gen, (D, F), torch.float32, D ** -0.5)
+    w_out = _rand(torch, gen, (F, D), torch.float32, F ** -0.5)
+    code = MDSScheme.make(N_WORKERS, 6)
+    mx = MeshExecutor(dead=(1,), stragglers=(2,))
+    run_op, busy = mx.run_op, []
+
+    def probed(op):  # is the card still working when run_op returns?
+        out = run_op(op)
+        busy.append(not torch.cuda.current_stream().query())
+        return out
+
+    def waited(op):  # the run as run_op made it before: then a synchronise
+        out = run_op(op)
+        torch.cuda.synchronize()
+        return out
+
+    # ~50 ms of device work queued ahead: the card is behind the host, as
+    # in a served prefill, however slow this machine's host is
+    pad = _rand(torch, gen, (4096, 4096), torch.float32)
+
+    def behind():
+        for _ in range(20):
+            pad @ pad
+
+    def ffn(h):
+        a = coded_matmul(h, w_in, code, executor=mx)
+        g = coded_matmul(h, w_gate, code, executor=mx)
+        return coded_matmul(Fn.gelu(g) * a, w_out, code, executor=mx)
+
+    reports = []
+    try:
+        ffn(x)  # every graph captured, every kernel built
+        mx.settle()
+        torch.cuda.synchronize()
+        mx.run_op = probed
+        mx.on_report = reports.append
+        # (a) the run returns with the card still busy; its result read in
+        # stream order is the result of the same run waited for
+        behind()
+        y = coded_matmul(x, w_in, code, executor=mx)
+        require(busy == [True], "the stream was idle when run_op returned")
+        mx.run_op = waited
+        y_sync = coded_matmul(x, w_in, code, executor=mx)
+        mx.run_op = probed
+        require(bool(torch.equal(y, y_sync)),
+                "a run not waited for differs from the same run waited for")
+        want = x @ w_in
+        amp = decode_amplification(code, mx.last_report.subset)
+        tol = amp * D ** 0.5 * 2.0 ** -24 * float(want.abs().max())
+        err = float((y - want).abs().max())
+        require(err <= tol, f"coded matmul err {err} > {tol}")
+        # (b) the FFN's three runs back to back, the host ahead of the card
+        torch.cuda.synchronize()
+        mx.settle()
+        q0, n0 = mx.queued_runs, len(reports)
+        behind()
+        t0 = time.perf_counter()
+        ffn(x)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        queued = mx.queued_runs - q0
+        require(len(reports) == n0, "a report delivered before a settle")
+        torch.cuda.synchronize()
+        mx.settle()
+        # every run since the warm-up's three: y, y_sync and the FFN's
+        require(len(reports) == n0 + 3 == mx.run_count - 3,
+                f"{len(reports)} reports for {mx.run_count - 3} runs")
+        require(all(r.wall_s > 0.0 and r.t_complete == r.wall_s
+                    for r in reports), "a report with no time on the card")
+        require(queued == 2, f"{queued} of the FFN's 3 runs queued behind "
+                             "the one before (the first has none pending)")
+        # (c) runs never overlap by stream order alone: another stream is
+        # refused
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                coded_matmul(x, w_in, code, executor=mx)
+        except RuntimeError as e:
+            refused = "stream" in str(e)
+        else:
+            refused = False
+        require(refused, "a run on another stream was not refused")
+    finally:
+        mx.close()
+    ffn_ms = [r.wall_s * 1e3 for r in reports[-3:]]
+    emit({"phase": "mesh_async",
+          "setup": "MeshExecutor(dead=(1,), stragglers=(2,)), MDS (10, 6), "
+                   f"x ({T}, {D}) f32, FFN {D} -> {F} -> {D}",
+          "busy_when_run_op_returned": busy[0], "bit_identical": True,
+          "max_abs_err": err, "tol": tol,
+          "ffn_queued_runs": queued, "ffn_host_issue_ms": host_ms,
+          "ffn_run_ms_on_card": ffn_ms,
+          "ffn_card_ms": sum(ffn_ms), "refused_other_stream": True})
 
 
 def mesh_matrix(torch) -> dict:
@@ -3439,9 +3556,9 @@ def modeled_mesh():
             super().__init__(**kw)
             self.pool.clock = FakeClock()
 
-        def _book(self, scheme, subset, wall):
+        def _book(self, scheme, subset, wall, t_submit=None):
             self.walls.append(wall)
-            super()._book(scheme, subset, 1.0)
+            super()._book(scheme, subset, 1.0, t_submit)
 
     mx = ModeledMesh(dead=(1,), stragglers=(2,))
     mx.walls = []
@@ -5097,6 +5214,8 @@ def main() -> int:
         if "kernels" in phases else None
     if "coded_ops" in phases:
         timed("coded_ops", phase_coded_ops, torch)
+    if "mesh_async" in phases:
+        timed("mesh_async", phase_mesh_async, torch)
     by_path, zamba2 = {}, None
     if "vgg16" in phases:
         by_path["vgg16"] = timed("vgg16", phase_vgg16, torch)

@@ -72,9 +72,13 @@ class ExecBackend(Protocol):
     """What a coded-dispatch backend must provide.
 
     Attributes (telemetry surface):
-      * ``run_count``: decoded runs completed so far.
-      * ``last_report``: the most recent ``RunReport`` (or ``None``).
-      * ``on_report``: optional callback fired with each ``RunReport``.
+      * ``run_count``: decoded runs issued so far.
+      * ``last_report``: the most recent run's ``RunReport`` (or ``None``),
+        complete when read, even where the backend books its runs later.
+      * ``on_report``: optional callback fired with each ``RunReport``, in
+        run order; a backend that does not wait for its runs (the mesh on
+        the card) fires it at its ``settle()``, which the engine calls at
+        each copy to the host.
 
     Structural extras callers lean on — a ``pool`` facade with ``clock`` /
     ``delay_model`` / ``fault_plan`` / ``dispatch_count`` /

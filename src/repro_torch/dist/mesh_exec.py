@@ -22,10 +22,13 @@ as one program per (op shape, scheme, fault pattern):
 
 On a CUDA tensor the program is captured once as a CUDA graph and every run
 is a replay: the counterpart of the reference's ``jax.jit`` of its
-``shard_map`` program.  A run then costs one graph launch and one stream
-synchronise, where the threaded backend makes n + 2 launches from n + 1
-threads and a synchronise per piece.  On a CPU tensor the same program runs
-eagerly on the kernels' plain versions.
+``shard_map`` program.  A run then costs one graph launch between two timing
+events, and the host does not wait for it: the caller goes on issuing the
+work after it while the card runs the pieces, and the run's report is
+completed from its events at the next wait the caller makes anyway
+(``settle``).  The threaded backend makes n + 2 launches from n + 1 threads
+and a synchronise per piece.  On a CPU tensor the same program runs eagerly
+on the kernels' plain versions, and its report is booked when it returns.
 
 k-of-n semantics in one program (the reference's DESIGN.md §13): a launch
 cannot cancel a lane — every piece is computed.  "Early exit" is therefore
@@ -64,6 +67,11 @@ __all__ = ["MeshExecutor"]
 # graph objects: served Zamba2-1.2B keeps 9 (three token counts x three FFN
 # weights), gemma-2b under load ~1,100 (54 FFN weights x ~20 token counts)
 MAX_GRAPHS = 4096
+# card runs whose reports may wait for a settle: a caller that never settles
+# (model code called without the engine) waits for the card once this many
+# are pending, so their events stay bounded.  An engine call settles at its
+# copy-out, long before: a qwen3-32b call issues 192 runs
+MAX_PENDING = 1024
 
 
 class _MeshFleet:
@@ -119,8 +127,11 @@ class _Static:
 class _Graph:
     """One captured program for one weight.  Its intermediates live in the
     executor's one graph memory pool and are free for the next capture to
-    reuse (runs never overlap, and nothing reads an intermediate after
-    its replay), so a graph keeps no memory of its own alive."""
+    reuse (runs never overlap: the host does not wait for a replay, but
+    every replay, input copy and output clone is issued on the one stream
+    ``run_op`` admits, so the card runs them in issue order; and nothing
+    reads an intermediate after its replay), so a graph keeps no memory of
+    its own alive."""
 
     graph: "torch.cuda.CUDAGraph"
     # kept alive while the graph may replay: the weight whose pointer the
@@ -128,6 +139,18 @@ class _Graph:
     # gather indices it reads (core/coding.py may drop its cache)
     w: torch.Tensor
     held: list
+
+
+@dataclasses.dataclass
+class _Pending:
+    """A run issued on the card whose report waits for its end event: the
+    run's time on the card is ``start.elapsed_time(end)``."""
+
+    scheme: object
+    subset: tuple
+    t_submit: float
+    start: "torch.cuda.Event"
+    end: "torch.cuda.Event"
 
 
 class MeshExecutor:
@@ -155,7 +178,8 @@ class MeshExecutor:
     compile-once contract.  On the card each program is a CUDA graph per
     weight as well (a graph bakes the weight's pointer, and layers share
     shapes, not weights): ``graph_count`` counts captures,
-    ``replay_count`` replays.
+    ``replay_count`` replays, and ``queued_runs`` the runs issued while
+    the run before them was still on the card (the host ahead of it).
     """
 
     def __init__(self, mesh: LocalMesh | None = None, *,
@@ -175,7 +199,7 @@ class MeshExecutor:
         self.pool = _MeshFleet(self.mesh, axis)
         self.elastic = False
         self.run_count = 0
-        self.last_report: RunReport | None = None
+        self._last_report: RunReport | None = None
         self.on_report = None
         # optional telemetry.TraceSink.  One program has no per-piece
         # timeline — the mesh emits run-level spans ONLY, on real wall time
@@ -183,8 +207,10 @@ class MeshExecutor:
         self.compile_count = 0
         self.graph_count = 0
         self.replay_count = 0
-        # host seconds blocked on the card: each run's stream synchronise,
-        # summed (the scheduler reads it as a delta a step)
+        self.queued_runs = 0
+        # host seconds blocked on the card (the scheduler reads it as a delta
+        # a step): a report asked for before its run has finished, and a CPU
+        # run's span after its program returned
         self.wait_s = 0.0
         self._programs: set = set()
         self._graphs: collections.OrderedDict = collections.OrderedDict()
@@ -192,9 +218,30 @@ class MeshExecutor:
         self._pool_handle = None
         self._capture_stream = None
         self._chain_t = 0.0
+        # the card's runs whose reports wait for their end events, in run
+        # order; timing events free for the next run; graphs dropped past
+        # MAX_GRAPHS while a replay of theirs may still be on the card; the
+        # stream every replay is issued on
+        self._pending: collections.deque = collections.deque()
+        self._events: list = []
+        self._evicted: list = []
+        self._stream = None
+
+    @property
+    def last_report(self) -> RunReport | None:
+        """The most recent run's report.  Read while runs are pending, it
+        waits for the last of them on the card and books them all."""
+        if self._pending:
+            self.settle()
+        return self._last_report
+
+    @last_report.setter
+    def last_report(self, report: RunReport | None) -> None:
+        self._last_report = report
 
     # -- executor contract (dist/backend.py) --------------------------------
     def close(self) -> None:
+        self.settle()
         self._programs.clear()
         self._graphs.clear()
         self._static.clear()
@@ -207,8 +254,9 @@ class MeshExecutor:
 
     @contextlib.contextmanager
     def chain(self, start: float = 0.0):
-        """Causal-chain marker for API parity: runs are synchronous, so
-        successive run_ops are already serial; nothing to gate."""
+        """Causal-chain marker for API parity: successive run_ops are
+        already serial (one stream on the card, eager on the CPU); nothing
+        to gate."""
         prev = self._chain_t
         self._chain_t = float(start)
         try:
@@ -344,7 +392,9 @@ class MeshExecutor:
             self._graphs[gkey] = g
             self.graph_count += 1
             while len(self._graphs) > MAX_GRAPHS:
-                self._graphs.popitem(last=False)
+                _, old = self._graphs.popitem(last=False)
+                if self._pending:  # freed once its runs are settled
+                    self._evicted.append(old)
         else:
             self._graphs.move_to_end(gkey)
             st.x.copy_(op.x)
@@ -355,13 +405,17 @@ class MeshExecutor:
 
     def run_op(self, op) -> torch.Tensor:
         """Run one coded op end to end; return the decoded (k,)+piece-shape
-        stack.  ``RunReport.wall_s`` == ``t_complete`` (there is no
-        virtual plane) is wall time that ends once the result is on the
-        device: one stream synchronise per run, whose wait is summed into
-        ``wait_s`` (a CPU program has finished when it returns).  Spans:
-        ``repro.mesh.replay`` (the program's run: a graph replay on the
-        card, ``repro.mesh.capture`` inside it when the graph is new) and
-        ``repro.mesh.sync``."""
+        stack.  On the card the run is issued and not waited for: the
+        returned stack is read in stream order by whatever follows, and
+        the run's ``RunReport`` (``wall_s`` == ``t_complete``: its time on
+        the card, from a pair of timing events around the replay) is
+        delivered at the next ``settle`` or ``last_report``.  A CPU
+        program has finished when it returns: its report is booked at once
+        with the host's wall, and the span after it is summed into
+        ``wait_s``.  Spans: ``repro.mesh.replay`` (the program's run: a
+        graph replay on the card, ``repro.mesh.capture`` inside it when the
+        graph is new) and ``repro.mesh.sync`` (the record of the run's end
+        event)."""
         scheme = op.scheme
         validate_pieces(self.mesh, scheme.n, axis=self.axis)
         subset = self._subset(scheme)
@@ -370,6 +424,10 @@ class MeshExecutor:
             self._programs.add(key)
             self.compile_count += 1
         cuda = op.x.device.type == "cuda"
+        if cuda:
+            self._check_stream(op.x.device)
+            start, end = self._event(), self._event()
+            start.record()
         t0 = time.perf_counter()
         with span("mesh.replay"):
             out = (self._replay(op, subset, key) if cuda
@@ -377,14 +435,76 @@ class MeshExecutor:
         t1 = time.perf_counter()
         with span("mesh.sync"):
             if cuda:
-                torch.cuda.current_stream(op.x.device).synchronize()
+                end.record()
         t2 = time.perf_counter()
-        self.wait_s += t2 - t1
-        self._book(scheme, subset, t2 - t0)
+        self._count(scheme, subset)
+        if cuda:
+            self._defer(scheme, subset, start, end)
+        else:
+            self.wait_s += t2 - t1
+            self._book(scheme, subset, t2 - t0)
         return out
 
-    def _book(self, scheme, subset: tuple[int, ...], wall: float) -> None:
+    # -- reports of the card's runs ------------------------------------------
+    def _check_stream(self, device) -> None:
+        """Runs never overlap only because the card runs one stream in
+        order: refuse a run issued on another stream than the first's."""
+        stream = torch.cuda.current_stream(device)
+        if self._stream is None:
+            self._stream = stream
+        elif stream != self._stream:
+            raise RuntimeError(
+                "MeshExecutor: run_op on another CUDA stream than its "
+                "earlier runs'; its programs share buffers that only one "
+                "stream's order keeps apart")
+
+    def _event(self) -> "torch.cuda.Event":
+        return (self._events.pop() if self._events
+                else torch.cuda.Event(enable_timing=True))
+
+    def _defer(self, scheme, subset: tuple[int, ...], start, end) -> None:
+        """Hold a card run's report until its end event has fired.  The
+        run counts in ``queued_runs`` when the run before it had not."""
+        if self._pending and not self._pending[-1].end.query():
+            self.queued_runs += 1
+        self._pending.append(_Pending(scheme, subset, self._chain_t,
+                                      start, end))
+        if len(self._pending) >= MAX_PENDING:
+            self.settle()
+
+    def settle(self) -> None:
+        """Deliver every pending report, in run order, each once, to
+        ``last_report``, the trace sink and ``on_report``.  Called after a
+        copy to the host, which has waited for every run before it, this
+        never waits; otherwise it waits for the last run on the card and
+        sums the wait into ``wait_s``."""
+        if not self._pending:
+            return
+        last = self._pending[-1].end
+        if not last.query():
+            t0 = time.perf_counter()
+            last.synchronize()
+            self.wait_s += time.perf_counter() - t0
+        # swapped out first: a report's reader (``last_report`` in an
+        # ``on_report`` hook) finds nothing left to book
+        pending, self._pending = self._pending, collections.deque()
+        for p in pending:
+            wall = p.start.elapsed_time(p.end) / 1e3
+            self._events += (p.start, p.end)
+            self._book(p.scheme, p.subset, wall, p.t_submit)
+        if not self._pending:
+            self._evicted.clear()
+
+    def _count(self, scheme, subset: tuple[int, ...]) -> None:
+        dead = {p for p in self.dead if p < scheme.n}
+        self.pool.dispatch_count += scheme.n + sum(
+            1 for p in dead if p in subset)
+        self.run_count += 1
+
+    def _book(self, scheme, subset: tuple[int, ...], wall: float,
+              t_submit: float | None = None) -> None:
         n = scheme.n
+        t_submit = self._chain_t if t_submit is None else t_submit
         dead = {p for p in self.dead if p < n}
         report = RunReport(
             t_complete=wall, wall_s=wall, subset=list(subset),
@@ -394,15 +514,13 @@ class MeshExecutor:
             cancelled=[p for p in range(n)
                        if p not in subset and p not in dead],
             assignment={p: p for p in range(n)},
-            t_submit=self._chain_t)
-        self.pool.dispatch_count += n + sum(1 for p in dead if p in subset)
-        self.run_count += 1
-        self.last_report = report
+            t_submit=t_submit)
+        self._last_report = report
         if self.trace_sink is not None:
             from ..telemetry.trace import Span
             origin = float(getattr(self.trace_sink, "origin", 0.0))
             self.trace_sink.span(Span(
-                "run", "exec", origin + self._chain_t, wall, "mesh",
+                "run", "exec", origin + t_submit, wall, "mesh",
                 {"n": n, "k": scheme.k, "pieces": len(report.assignment),
                  "redispatches": len(report.redispatched),
                  "decoded": len(report.subset)}))

@@ -219,13 +219,23 @@ class Engine:
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         """The greedy pick at the last position, copied to the host: the
         copy waits for the call's work on the card, and that wait is
-        summed into ``wait_s`` (a ``repro.engine.sample`` span)."""
+        summed into ``wait_s`` (a ``repro.engine.sample`` span).  Then the
+        executor's reports of the call's runs are delivered."""
         with span("engine.sample"):
             nxt = self._greedy(logits)[:, 0]
             t0 = time.perf_counter()
             out = nxt.cpu().numpy()
             self.wait_s += time.perf_counter() - t0
+            self._settle()
         return out
+
+    def _settle(self) -> None:
+        """Deliver the reports a one-program executor holds until its runs
+        have finished on the card, as they have after a copy to the host
+        (the thread pool's are delivered as its runs return)."""
+        settle = getattr(self.executor, "settle", None)
+        if settle is not None:
+            settle()
 
     def _count_prefill(self, tokens: int) -> None:
         self.prefill_calls += 1
@@ -395,6 +405,7 @@ class Engine:
         t_first = None
         for step in range(max_new):
             step_tok = nxt[:, 0].cpu().numpy()  # materialized -> token exists
+            self._settle()
             if t_first is None:
                 t_first = time.perf_counter() - t0
             generated.append(step_tok)

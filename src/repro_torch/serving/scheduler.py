@@ -156,9 +156,9 @@ class StepRecord:
     # always on; 0 on the virtual plane, whose records stay pure functions
     # of the seeds
     wait_s: float = 0.0     # host seconds blocked on the card in the step's
-    #                         calls: the mesh's per-run synchronise
-    #                         (MeshExecutor.wait_s) and the sampled tokens'
-    #                         copy to the host (Engine.wait_s)
+    #                         calls: the sampled tokens' copy to the host
+    #                         (Engine.wait_s), and the mesh's waits for a
+    #                         run's report (MeshExecutor.wait_s)
     sched_s: float = 0.0    # the step's wall, its start to its record, less
     #                         its model calls' walls: the scheduler's own
     #                         host work (admission, cache joins, retirement)
@@ -440,7 +440,7 @@ class ServingScheduler:
     def _real_counters(self) -> tuple:
         """(perf_counter, host seconds blocked on the card, prefill calls,
         prefill tokens) now: the engine's cumulative counters, plus the
-        mesh's synchronise waits (a pool keeps none)."""
+        mesh's own waits (a pool keeps none)."""
         eng = self.engine
         return (time.perf_counter(),
                 eng.wait_s + getattr(eng.executor, "wait_s", 0.0),
