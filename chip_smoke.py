@@ -1368,10 +1368,74 @@ def check_ssd_bwd_passes(torch, timer, gen) -> list[dict]:
     return out
 
 
+def check_grouped_gemm(torch, timer, gen, name, tokens, held) -> list[dict]:
+    """The experts' grouped GEMM (``kernels/grouped_gemm.py``) at
+    granite-4.0-h-small's widths, on a real routing of ``tokens`` random
+    tokens (top-10 of 72, ``held`` experts held): gate/up (rows gathered,
+    K 4096, N 768) and down (gated, scattered to slot order, K 768, N
+    4096), each against its plain version (f32 products, one rounding to
+    bf16: within 2^-7 of the largest output, the two sums' orders apart)
+    and bit for bit itself on a second run."""
+    from repro_torch.kernels.grouped_gemm import (grouped_gemm,
+                                                  grouped_gemm_plain)
+    from repro_torch.models.moe import route
+
+    D, F, E, K = 4096, 768, 72, 10
+    bf = torch.bfloat16
+    x = torch.randn(tokens, D, generator=gen, device="cuda").to(bf)
+    router = torch.randn(D, E, generator=gen, device="cuda") / 64
+    w1 = (torch.randn(held, D, F, generator=gen, device="cuda") / 64).to(bf)
+    w2 = (torch.randn(held, F, D, generator=gen, device="cuda")
+          / F ** 0.5).to(bf)
+    gates, is_held, order, offsets, counts = route(router, x, K, 0, held)
+    token = torch.div(order, K, rounding_mode="floor")
+    scale = torch.where(is_held, gates, torch.zeros_like(gates))[order]
+    a = torch.randn(tokens * K, F, generator=gen, device="cuda").to(bf)
+    sizes = counts[:held].tolist()
+    rows = sum(sizes)
+    out = []
+    for proj, k_, n_, run, plain in (
+            ("gate/up", D, F,
+             lambda: grouped_gemm(x, w1, offsets, rows=token),
+             lambda: grouped_gemm_plain(x, w1, offsets, rows=token)),
+            ("down", F, D,
+             lambda: grouped_gemm(a, w2, offsets, scale=scale, dst=order,
+                                  out=torch.zeros(tokens * K, D, dtype=bf,
+                                                  device="cuda")),
+             lambda: grouped_gemm_plain(a, w2, offsets, scale=scale,
+                                        dst=order, out=torch.zeros(
+                                            tokens * K, D, dtype=bf,
+                                            device="cuda")))):
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        live = slice(0, rows) if proj == "gate/up" else slice(None)
+        err = float((got[live].float() - want[live].float()).abs().max()
+                    / want[live].float().abs().max())
+        require(err <= 2.0 ** -7, f"{name} {proj}: {err:.3e} from plain")
+        require(bool(torch.equal(got[live], again[live])),
+                f"{name} {proj}: two runs differ")
+        flops = 2.0 * rows * k_ * n_
+        n_bytes = 2 * (rows * (k_ + n_)
+                       + sum(c > 0 for c in sizes) * k_ * n_)
+        bound_ms, bound_by = bound(n_bytes, flops, "bfloat16")
+        out.append({"case": f"{name} {proj}", "kernel": "grouped_gemm",
+                    "shape": {"tokens": tokens, "held": held, "rows": rows,
+                              "K": k_, "N": n_,
+                              "empty": sum(c == 0 for c in sizes)},
+                    "dtype": "bfloat16", "rel_err": err,
+                    "ms": timer.ms(run), "plain_ms": timer.ms(plain),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+    return out
+
+
 def phase_kernels(torch) -> list[dict]:
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [check_gemm(torch, timer, gen, *c) for c in gemm_cases(torch)]
+    # the experts' grouped GEMM: a decode step's 8 tokens, a prefill's 4096
+    for tokens in (8, 4096):
+        cases += check_grouped_gemm(torch, timer, gen,
+                                    f"experts of {tokens} tokens", tokens, 18)
     cases += [check_stacked(torch, timer, gen, t_p, b, F)
               for b, F in STACKED_W for t_p in STACKED_T_P]
     # the mesh's stacked launch at gemma-2b's shapes (phase serving (c))

@@ -1,5 +1,6 @@
 """Architecture config registry (``--arch <id>``): the reference's ten
-architectures, in the reference's order."""
+architectures, in the reference's order (``ARCHS``), and the port's own
+(granite-4.0-h-small)."""
 from __future__ import annotations
 
 import importlib
@@ -22,14 +23,22 @@ _MODULES = {
 
 ARCHS = tuple(_MODULES)
 
+# configurations of the port alone, beside the reference's ten: served and
+# benchmarked, outside ``ARCHS`` (which lists the reference's)
+_PORT_MODULES = {
+    "granite-4.0-h-small": "granite_4_0_h_small",
+}
+
 __all__ = ["ARCHS", "get_config", "smoke_config", "INPUT_SHAPES", "InputShape",
            "for_shape", "smoke_variant", "LONG_WINDOW"]
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
-    mod = importlib.import_module(f".{_MODULES[arch]}", __package__)
+    name = _MODULES.get(arch) or _PORT_MODULES.get(arch)
+    if name is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(_MODULES) + sorted(_PORT_MODULES)}")
+    mod = importlib.import_module(f".{name}", __package__)
     return mod.CONFIG
 
 

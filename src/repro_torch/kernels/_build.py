@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "find_nvcc", "build_all",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("skinny_gemm", "conv2d", "ssd_chunk", "ssd_chunk_bwd",
-           "mma_probe")
+           "grouped_gemm", "mma_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600.0

@@ -24,13 +24,19 @@ __all__ = ["blockwise_causal_attention", "decode_attention",
 NEG_INF = -1e30
 
 
+def _scale(P: int, scale: float | None) -> float:
+    """The scores' multiplier: ``scale``, or ``P ** -0.5`` when None."""
+    return P ** -0.5 if scale is None else scale
+
+
 def _gqa_scores(qb: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
     """qb: (B, bq, K, G, P), kb: (B, bk, K, P) -> (B, K, G, bq, bk) f32."""
     return torch.einsum("bqkgp,bskp->bkgqs", qb.float(), kb.float())
 
 
 def _flash_fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int, block_q: int, block_k: int
+                    window: int, block_q: int, block_k: int,
+                    scale: float | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal (optionally sliding-window) attention by an online softmax
     over KV blocks, one Q block at a time.
@@ -40,6 +46,7 @@ def _flash_fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of each query's masked scores.  T is padded internally to a multiple
     of lcm(block_q, block_k): padded keys sit at positions > every real
     query so the causal mask hides them; padded query rows are sliced off.
+    ``scale`` multiplies the scores (``P ** -0.5`` when None).
     """
     B, T, H, P = q.shape
     K = k.shape[2]
@@ -52,7 +59,7 @@ def _flash_fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = (torch.nn.functional.pad(t, p4) for t in (q, k, v))
     Tf = T + pad
     nq, nk = Tf // block_q, Tf // block_k
-    scale = P ** -0.5
+    scale = _scale(P, scale)
     dev = q.device
 
     qb = q.reshape(B, nq, block_q, K, G, P)
@@ -102,6 +109,7 @@ def blockwise_causal_attention(
     window: int = 0,
     block_q: int = 512,
     block_k: int = 512,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) attention.
 
@@ -109,10 +117,10 @@ def blockwise_causal_attention(
     Returns (B, T, H, P) in q.dtype.  The reference's ``unroll`` (a hint
     for XLA's cost analysis) has no counterpart: the port loops in Python.
     """
-    return _flash_fwd_impl(q, k, v, window, block_q, block_k)[0]
+    return _flash_fwd_impl(q, k, v, window, block_q, block_k, scale)[0]
 
 
-def _flash_bwd(window: int, block_q: int, block_k: int, res, dout):
+def _flash_bwd(window: int, block_q: int, block_k: int, scale, res, dout):
     """The reference's custom VJP of flash attention: each block's
     probabilities recomputed from ``lse`` (no O(T^2) residual), then a dq
     pass over query blocks and a dk / dv pass over key blocks, f32
@@ -124,7 +132,7 @@ def _flash_bwd(window: int, block_q: int, block_k: int, res, dout):
     G = H // K
     block_q = min(block_q, T)
     block_k = min(block_k, T)
-    scale = P ** -0.5
+    scale = _scale(P, scale)
     f32 = torch.float32
     dev = q.device
     # D_i = sum_p dout_i * out_i  (B, K, G, T)
@@ -198,29 +206,29 @@ class _FlashAttention(torch.autograd.Function):
     saves them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, block_q, block_k):
-        out, lse = _flash_fwd_impl(q, k, v, window, block_q, block_k)
+    def forward(ctx, q, k, v, window, block_q, block_k, scale):
+        out, lse = _flash_fwd_impl(q, k, v, window, block_q, block_k, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (window, block_q, block_k)
+        ctx.cfg = (window, block_q, block_k, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         dq, dk, dv = _flash_bwd(*ctx.cfg, ctx.saved_tensors, dout)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, window: int = 0,
-                           block_q: int = 512, block_k: int = 512
-                           ) -> torch.Tensor:
+                           block_q: int = 512, block_k: int = 512,
+                           scale: float | None = None) -> torch.Tensor:
     """The reference's flash attention with its custom VJP: the forward is
     ``_flash_fwd_impl``'s output (the same arithmetic as
     :func:`blockwise_causal_attention`), the backward ``_flash_bwd``, which
     recomputes each block's scores from the saved log-sum-exp instead of
     keeping the O(T^2) probabilities.  The reference computes both outside
     any Pallas kernel, and so does the port, in plain torch."""
-    return _FlashAttention.apply(q, k, v, window, block_q, block_k)
+    return _FlashAttention.apply(q, k, v, window, block_q, block_k, scale)
 
 
 def decode_attention(
@@ -228,6 +236,7 @@ def decode_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     pos,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """One-token attention over a ring KV cache.
 
@@ -250,7 +259,7 @@ def decode_attention(
     B, S, K, P = k_cache.shape
     H = q.shape[2]
     G = H // K
-    scale = P ** -0.5
+    scale = _scale(P, scale)
     qr = q.reshape(B, 1, K, G, P)
     s = torch.einsum("bqkgp,bskp->bkgqs", qr.float(), k_cache.float()) * scale
     pos = torch.as_tensor(pos, device=q.device)
@@ -272,6 +281,7 @@ def chunk_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     pos0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Multi-token attention over a ring KV cache — the chunked-prefill
     primitive.
@@ -287,7 +297,7 @@ def chunk_attention(
     B, S, K, P = k_cache.shape
     Tc, H = q.shape[1], q.shape[2]
     G = H // K
-    scale = P ** -0.5
+    scale = _scale(P, scale)
     qr = q.reshape(B, Tc, K, G, P)
     s = torch.einsum("btkgp,bskp->bkgts", qr.float(),
                      k_cache.float()) * scale

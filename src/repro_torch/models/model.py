@@ -15,6 +15,14 @@ attention block applied every ``shared_attn_period`` layers (single weight
 set, Zamba2-style).  Audio/VLM architectures take precomputed frame/patch
 embeddings instead of token ids (``models/frontends.py``).
 
+A :class:`HybridMoEConfig` (granite-4.0-h) lists each layer's mixer
+(``layer_types``: a Mamba2 block or an attention block with its own
+weights) and follows every layer, whatever its mixer, by the same FFN: a
+dropless mixture of experts over the experts this device holds
+(``models/moe.py``) plus a dense SiLU-gated shared expert, whose GEMMs are
+coded like every dense FFN's; both branches of each layer are added to the
+residual stream times ``residual_scale``.
+
 Parameters are nested dicts with the reference's names and layouts, with
 one difference: ``params["layers"]`` is always a per-layer list (the
 reference stacks homogeneous layers for ``lax.scan``; the port runs
@@ -28,7 +36,8 @@ is installed with :func:`coded_executor`.
 
 Serving's :func:`prefill` and :func:`decode_step` run each layer in a
 ``repro.model.mamba`` or ``repro.model.attn`` span (a shared attention
-block, FFN included, is its own ``attn`` span) and the final norm and LM
+block, FFN included, is its own ``attn`` span; a hybrid layer's FFN is a
+``repro.model.moe`` span after its mixer's) and the final norm and LM
 head in ``repro.model.head`` (``telemetry.trace.span``).
 """
 from __future__ import annotations
@@ -50,12 +59,14 @@ from .attention import (blockwise_causal_attention, chunk_attention,
                         decode_attention, flash_causal_attention)
 from .common import (gather_fsdp, lecun_init, lookup, rms_norm, rope,
                      rope_at, settle, unshard)
+from .moe import current_counters, dropless_moe
 from .ssm import (SSMDims, MambaState, init_mamba_params, mamba_forward,
                   mamba_step)
 
-__all__ = ["ModelConfig", "init_params", "forward", "prefill",
-           "prefill_resume", "supports_prefill_pack", "decode_step",
-           "init_cache", "param_count", "coded_executor", "current_executor"]
+__all__ = ["ModelConfig", "HybridMoEConfig", "init_params", "forward",
+           "prefill", "prefill_resume", "supports_prefill_pack",
+           "decode_step", "init_cache", "param_count", "coded_executor",
+           "current_executor"]
 
 # ---------------------------------------------------------------------------
 # executor context: live distributed execution of the coded GEMMs
@@ -141,6 +152,29 @@ class ModelConfig:
     # the probabilities from the saved log-sum-exp)
     flash_vjp: bool = False
 
+    # The settings a HybridMoEConfig makes fields of, as plain class
+    # attributes and properties here (ModelConfig's fields are the
+    # reference's, one for one), at the values every configuration of the
+    # reference computes with: no per-layer mixer list, unscaled residuals
+    # and logits, RoPE, the attention's own 1/sqrt(head size) (None) and
+    # RMSNorm's eps 1e-6; all experts held and sqrt(d_model) on the
+    # embedding, below.
+    layer_types = ()
+    shared_d_ff = 0
+    residual_scale = 1.0
+    logits_scale = 1.0
+    attn_scale = None
+    positional = "rope"
+    norm_eps = 1e-6
+
+    @property
+    def experts_held(self) -> int:
+        return self.n_experts
+
+    @property
+    def embed_scale(self) -> float:
+        return self.d_model ** 0.5
+
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -168,6 +202,46 @@ class ModelConfig:
     def has_shared_attn(self, i: int) -> bool:
         p = self.shared_attn_period
         return p > 0 and (i % p == p - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """A decoder whose layers each have a mixer of their own kind,
+    ``layer_types[i]`` ("mamba" or "attn", each with its own weights),
+    followed by the same FFN: the dropless top-``top_k`` mixture over
+    ``n_experts`` routed experts ``d_ff`` wide, of which this device holds
+    the first ``experts_held`` (None: all of them), plus a SiLU-gated
+    shared expert ``shared_d_ff`` wide.  ``embed_scale`` multiplies
+    the embedding (None: sqrt(d_model)), ``residual_scale`` each branch
+    added to the residual stream, the logits are divided by
+    ``logits_scale``, ``attn_scale`` multiplies the attention scores (None:
+    1/sqrt(head size)), ``positional`` is "rope" or "nope" (no positions),
+    and every RMSNorm takes ``norm_eps``."""
+
+    layer_types: tuple = ()
+    experts_held: int | None = None
+    shared_d_ff: int = 0
+    embed_scale: float | None = None
+    residual_scale: float = 1.0
+    logits_scale: float = 1.0
+    attn_scale: float | None = None
+    positional: str = "rope"
+    norm_eps: float = 1e-6
+
+    def __post_init__(self):
+        for name, value in (("experts_held", self.n_experts),
+                            ("embed_scale", self.d_model ** 0.5)):
+            if getattr(self, name) is None:
+                object.__setattr__(self, name, value)
+        if len(self.layer_types) != self.n_layers or not set(
+                self.layer_types) <= {"mamba", "attn"}:
+            raise ValueError(f"layer_types must name 'mamba' or 'attn' for "
+                             f"each of the {self.n_layers} layers")
+        if self.positional not in ("rope", "nope"):
+            raise ValueError(f"unknown positional {self.positional!r}")
+
+    def layer_kind(self, i: int) -> str:
+        return self.layer_types[i]
 
 
 # ---------------------------------------------------------------------------
@@ -212,22 +286,33 @@ def _init_experts(gen, shape, dtype, fan_in: int, dev) -> torch.Tensor:
 
 
 def _init_moe(gen, cfg: ModelConfig, dev) -> dict:
-    """Router ``(D, E)`` in f32 whatever ``cfg.dtype``; the experts'
-    ``w_in``, ``w_gate`` ``(E, D, F)`` and ``w_out`` ``(E, F, D)`` in
-    ``cfg.dtype``."""
+    """Router ``(D, E)`` in f32 whatever ``cfg.dtype``; the held experts'
+    ``w_in``, ``w_gate`` ``(H, D, F)`` and ``w_out`` ``(H, F, D)`` in
+    ``cfg.dtype`` (H = E unless the configuration holds a share)."""
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    H = cfg.experts_held
     return {
         "router": lecun_init(gen, (D, E), torch.float32, fan_in=D,
                              device=dev),
-        "w_in": _init_experts(gen, (E, D, Fd), cfg.dtype, D, dev),
-        "w_gate": _init_experts(gen, (E, D, Fd), cfg.dtype, D, dev),
-        "w_out": _init_experts(gen, (E, Fd, D), cfg.dtype, Fd, dev),
+        "w_in": _init_experts(gen, (H, D, Fd), cfg.dtype, D, dev),
+        "w_gate": _init_experts(gen, (H, D, Fd), cfg.dtype, D, dev),
+        "w_out": _init_experts(gen, (H, Fd, D), cfg.dtype, Fd, dev),
     }
 
 
 def _init_layer(cfg: ModelConfig, kind: str, gen, dev) -> dict:
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32,
                                 device=dev)
+    if cfg.layer_types:  # the mixer, then the experts and the shared expert
+        layer = ({"norm": zeros(),
+                  "mamba": init_mamba_params(gen, cfg.ssm_dims, cfg.dtype,
+                                             device=dev)}
+                 if kind == "mamba" else
+                 {"attn_norm": zeros(), "attn": _init_attn(gen, cfg, dev)})
+        layer.update(ffn_norm=zeros(), moe=_init_moe(gen, cfg, dev),
+                     shared=_init_ffn(gen, dataclasses.replace(
+                         cfg, d_ff=cfg.shared_d_ff), dev))
+        return layer
     if kind == "mamba":
         return {"norm": zeros(),
                 "mamba": init_mamba_params(gen, cfg.ssm_dims, cfg.dtype,
@@ -425,6 +510,9 @@ def _moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     flat = x.reshape(-1, D)
     Tt = flat.shape[0]
     gates, eid, pos, keep, C = moe_route(cfg, p["router"], flat)
+    counters = current_counters()
+    if counters is not None:
+        counters.count(Tt, rows=keep.sum(), dropped=(~keep).sum())
     slot = eid * C + pos                                     # (Tt*K,)
     token = torch.arange(Tt * K, device=x.device) // K
     rows = flat.new_zeros((E * C + 1, D))
@@ -453,20 +541,35 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     return q, k, v
 
 
+def _place(cfg: ModelConfig, q, k, positions):
+    """q and k at their positions: rotated (RoPE), or as they are when the
+    configuration has no positional encoding (NoPE)."""
+    if cfg.positional == "nope":
+        return q, k
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta))
+
+
+def _place_at(cfg: ModelConfig, q, k, pos):
+    if cfg.positional == "nope":
+        return q, k
+    return rope_at(q, pos, cfg.rope_theta), rope_at(k, pos, cfg.rope_theta)
+
+
 def _attention(cfg: ModelConfig, q, k, v, window: int) -> torch.Tensor:
     if cfg.flash_vjp:
         return flash_causal_attention(q, k, v, window, cfg.block_q,
-                                      cfg.block_k)
+                                      cfg.block_k, cfg.attn_scale)
     return blockwise_causal_attention(q, k, v, window=window,
                                       block_q=cfg.block_q,
-                                      block_k=cfg.block_k)
+                                      block_k=cfg.block_k,
+                                      scale=cfg.attn_scale)
 
 
 def _attn_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
                positions: torch.Tensor, window: int) -> torch.Tensor:
     q, k, v = _qkv(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k = _place(cfg, q, k, positions)
     o = _attention(cfg, q, k, v, window)
     return torch.einsum("bthp,hpd->btd", o, unshard(p["wo"], 1))
 
@@ -482,6 +585,69 @@ def _attn_block_full(cfg: ModelConfig, layer: dict, x: torch.Tensor,
     return h + _ffn(cfg, layer["ffn"], y)
 
 
+def _residual(cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    """x + residual_scale * y, in one op, in x's type."""
+    return torch.add(x, y, alpha=cfg.residual_scale).to(x.dtype)
+
+
+def _hybrid_ffn(cfg: ModelConfig, layer: dict, h: torch.Tensor
+                ) -> torch.Tensor:
+    """A hybrid layer's FFN (a ``repro.model.moe`` span): the held
+    experts' part of the routed mixture plus the shared expert, whose GEMMs
+    are coded (``_ffn``), both on RMSNorm(h), added to h scaled."""
+    with span("model.moe"):
+        u = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
+        routed = dropless_moe(layer["moe"], u, cfg.top_k)
+        return _residual(cfg, h, routed + _ffn(cfg, layer["shared"], u))
+
+
+def _hybrid_layer(cfg: ModelConfig, layer: dict, x: torch.Tensor, i: int,
+                  positions: torch.Tensor, win: int, S: int):
+    """Layer ``i`` of a hybrid configuration over a whole prompt: its mixer
+    (a ``repro.model.mamba`` or ``repro.model.attn`` span) and its FFN.
+    Returns (x, the layer's cache entry sized for ``S`` positions)."""
+    eps = cfg.norm_eps
+    if cfg.layer_kind(i) == "mamba":
+        with span("model.mamba"):
+            y, st = mamba_forward(layer["mamba"],
+                                  rms_norm(x, layer["norm"], eps),
+                                  cfg.ssm_dims, cfg.ssm_chunk, eps=eps)
+            x = settle(_residual(cfg, x, y))
+        entry = {"mamba": {"conv": st.conv, "ssm": st.ssm}}
+    else:
+        with span("model.attn"):
+            a, kv = _prefill_attn_mixer(cfg, layer["attn"],
+                                        rms_norm(x, layer["attn_norm"], eps),
+                                        positions, win, S)
+            x = settle(_residual(cfg, x, a))
+        entry = {"kv": kv}
+    return settle(_hybrid_ffn(cfg, layer, x)), entry
+
+
+def _hybrid_layer_decode(cfg: ModelConfig, layer: dict, x: torch.Tensor,
+                         i: int, entry: dict, pos):
+    """One decode step of hybrid layer ``i``: (x, the entry's new state)."""
+    eps = cfg.norm_eps
+    if cfg.layer_kind(i) == "mamba":
+        with span("model.mamba"):
+            state = MambaState(conv=entry["mamba"]["conv"],
+                               ssm=entry["mamba"]["ssm"])
+            y, st = mamba_step(layer["mamba"],
+                               rms_norm(x, layer["norm"], eps), state,
+                               cfg.ssm_dims, eps=eps)
+            x = settle(_residual(cfg, x, y))
+        new = {"mamba": {"conv": st.conv, "ssm": st.ssm}}
+    else:
+        with span("model.attn"):
+            a, kv = _attn_decode(cfg, layer["attn"],
+                                 rms_norm(x, layer["attn_norm"], eps),
+                                 entry["kv"], pos)
+            x = settle(_residual(cfg, x, a))
+        new = {"kv": kv}
+    return settle(_hybrid_ffn(cfg, layer, x)), new
+
+
 # ---------------------------------------------------------------------------
 # forward (scoring)
 # ---------------------------------------------------------------------------
@@ -491,7 +657,7 @@ def _embed_in(cfg: ModelConfig, params: dict, tokens=None, embeds=None):
         return embeds.to(cfg.dtype)
     # the lookup reads the whole table (on the dry-run's DTensors too)
     emb = unshard(gather_fsdp(params["embed"]), 0)
-    scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
+    scale = torch.tensor(cfg.embed_scale, dtype=cfg.dtype,
                          device=emb.device)
     return lookup(emb, torch.as_tensor(tokens, device=emb.device).long()) \
         * scale
@@ -499,10 +665,13 @@ def _embed_in(cfg: ModelConfig, params: dict, tokens=None, embeds=None):
 
 def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor
              ) -> torch.Tensor:
-    """Tied-embedding LM head; padding vocab rows are masked to -1e30 (by
-    a select, which writes the values an in-place fill writes and has a
-    sharding rule for the dry-run's DTensors)."""
+    """Tied-embedding LM head, divided by ``logits_scale``; padding vocab
+    rows are masked to -1e30 (by a select, which writes the values an
+    in-place fill writes and has a sharding rule for the dry-run's
+    DTensors)."""
     logits = (x @ gather_fsdp(params["embed"]).T).float()
+    if cfg.logits_scale != 1.0:
+        logits = logits / cfg.logits_scale
     if cfg.padded_vocab > cfg.vocab:
         real = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
         logits = torch.where(real, logits, torch.full(
@@ -538,13 +707,16 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, embeds=None,
             torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
         mamba_layer, attn_layer = remat(mamba_layer), remat(attn_layer)
     for i, layer in enumerate(params["layers"]):
-        if cfg.layer_kind(i) == "mamba":
+        if cfg.layer_types:
+            x = _hybrid_layer(cfg, gather_fsdp(layer), x, i, positions, win,
+                              T)[0]
+        elif cfg.layer_kind(i) == "mamba":
             x = settle(mamba_layer(layer, x))
             if cfg.has_shared_attn(i):
                 x = settle(attn_layer(params["shared_attn"], x))
         else:
             x = settle(attn_layer(layer, x, _layer_ffn_key(cfg, i)))
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_head(cfg, params, x)
 
 
@@ -590,8 +762,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 def _attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, kv: dict, pos
                  ) -> tuple[torch.Tensor, dict]:
     q, k, v = _qkv(cfg, p, x)
-    q = rope_at(q, pos, cfg.rope_theta)
-    k = rope_at(k, pos, cfg.rope_theta)
+    q, k = _place_at(cfg, q, k, pos)
     S = kv["k"].shape[1]
     slot = (torch.as_tensor(pos, device=x.device) % S).long()
     # the new entry written at its ring slot (each lane its own slot for
@@ -602,7 +773,7 @@ def _attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, kv: dict, pos
     hit = hit[:, :, None, None]                              # (B|1, S, 1, 1)
     k_cache = torch.where(hit, k.to(kv["k"].dtype), kv["k"])
     v_cache = torch.where(hit, v.to(kv["v"].dtype), kv["v"])
-    o = decode_attention(q, k_cache, v_cache, pos)
+    o = decode_attention(q, k_cache, v_cache, pos, cfg.attn_scale)
     out = torch.einsum("bthp,hpd->btd", o, unshard(p["wo"], 1))
     return out, {"k": k_cache, "v": v_cache}
 
@@ -639,7 +810,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, token=None,
     for i, layer in enumerate(params["layers"]):
         entry = dict(cache["layers"][i])
         layer = gather_fsdp(layer)
-        if cfg.layer_kind(i) == "mamba":
+        if cfg.layer_types:
+            x, st = _hybrid_layer_decode(cfg, layer, x, i, entry, pos)
+            entry.update(st)
+        elif cfg.layer_kind(i) == "mamba":
             with span("model.mamba"):
                 x, st = _mamba_block_decode(cfg, layer, x, entry, pos)
                 x = settle(x)
@@ -657,7 +831,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, token=None,
                 x = settle(x)
         new_layers.append(entry)
     with span("model.head"):
-        x = rms_norm(x, params["final_norm"])
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = _lm_head(cfg, params, x)
     return logits, {"layers": new_layers, "pos": pos + 1}
 
@@ -700,7 +874,9 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, embeds=None,
     for i, layer in enumerate(params["layers"]):
         entry = {}
         layer = gather_fsdp(layer)
-        if cfg.layer_kind(i) == "mamba":
+        if cfg.layer_types:
+            x, entry = _hybrid_layer(cfg, layer, x, i, positions, win, S)
+        elif cfg.layer_kind(i) == "mamba":
             with span("model.mamba"):
                 y, st = mamba_forward(layer["mamba"],
                                       rms_norm(x, layer["norm"]),
@@ -720,7 +896,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, embeds=None,
                 x = settle(x)
         layers.append(entry)
     with span("model.head"):
-        x = rms_norm(x, params["final_norm"])
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if lens is None:
             logits = _lm_head(cfg, params, x[:, -1])
         else:
@@ -737,17 +913,23 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, embeds=None,
 
 def _prefill_attn(cfg, layer, x, positions, win, S, ffn_key):
     """Attention block over the full prompt that also emits the ring cache."""
-    p = layer["attn"]
-    q, k, v = _qkv(cfg, p, rms_norm(x, layer["attn_norm"]))
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    o = _attention(cfg, q, k, v, win)
-    h = x + torch.einsum("bthp,hpd->btd", o, unshard(p["wo"], 1))
+    a, kv = _prefill_attn_mixer(cfg, layer["attn"],
+                                rms_norm(x, layer["attn_norm"]), positions,
+                                win, S)
+    h = x + a
     y = rms_norm(h, layer["ffn_norm"])
     if ffn_key == "moe":
-        out = h + _moe_ffn(cfg, layer["moe"], y)
-    else:
-        out = h + _ffn(cfg, layer["ffn"], y)
+        return h + _moe_ffn(cfg, layer["moe"], y), kv
+    return h + _ffn(cfg, layer["ffn"], y), kv
+
+
+def _prefill_attn_mixer(cfg, p, x, positions, win, S):
+    """Attention over the full (normed) prompt ``x``: its output
+    projection, and the ring cache of its keys and values."""
+    q, k, v = _qkv(cfg, p, x)
+    q, k = _place(cfg, q, k, positions)
+    o = _attention(cfg, q, k, v, win)
+    out = torch.einsum("bthp,hpd->btd", o, unshard(p["wo"], 1))
     # ring cache: the last min(S, T) positions, placed so that slot = pos % S
     T = k.shape[1]
     if S >= T:
@@ -770,12 +952,11 @@ def _attn_resume(cfg: ModelConfig, p: dict, x: torch.Tensor, kv: dict,
     """Chunk attention block: write Tc new K/V slots at [pos0, pos0 + Tc),
     attend causally over the whole cache."""
     q, k, v = _qkv(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k = _place(cfg, q, k, positions)
     slots = positions.long()
     k_cache = kv["k"].index_copy(1, slots, k.to(kv["k"].dtype))
     v_cache = kv["v"].index_copy(1, slots, v.to(kv["v"].dtype))
-    o = chunk_attention(q, k_cache, v_cache, pos0)
+    o = chunk_attention(q, k_cache, v_cache, pos0, cfg.attn_scale)
     out = torch.einsum("bthp,hpd->btd", o, p["wo"])
     return out, {"k": k_cache, "v": v_cache}
 

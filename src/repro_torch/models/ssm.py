@@ -205,9 +205,9 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def mamba_forward(params: dict, x: torch.Tensor, dims: SSMDims,
-                  chunk: int = 128):
+                  chunk: int = 128, eps: float = 1e-6):
     """Full-sequence Mamba2 block. x: (B, T, D) -> (B, T, D), final
-    MambaState."""
+    MambaState; ``eps`` is the gated RMSNorm's."""
     Bsz, T, _ = x.shape
     zxbcdt = settle(x @ params["in_proj"])
     z, xbc, dt_raw = _split_in_proj(zxbcdt, dims)
@@ -222,7 +222,7 @@ def mamba_forward(params: dict, x: torch.Tensor, dims: SSMDims,
     y = settle_grad(y)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(Bsz, T, di)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"])
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"], eps)
     out = y @ params["out_proj"]
     # conv state: last W-1 *pre-conv* inputs
     zxbcdt_tail = x[:, -(dims.conv_width - 1):] @ params["in_proj"]
@@ -232,7 +232,7 @@ def mamba_forward(params: dict, x: torch.Tensor, dims: SSMDims,
 
 
 def mamba_step(params: dict, x: torch.Tensor, state: MambaState,
-               dims: SSMDims):
+               dims: SSMDims, eps: float = 1e-6):
     """One-token step. x: (B, 1, D) -> (B, 1, D), new state."""
     Bsz = x.shape[0]
     zxbcdt = settle(x[:, 0] @ params["in_proj"])  # (B, in_proj_dim)
@@ -251,7 +251,7 @@ def mamba_step(params: dict, x: torch.Tensor, state: MambaState,
     y, new_ssm = ssd_step(state.ssm, xs, dt, A, Bm, Cm)
     y = y + params["D"].to(y.dtype)[None, :, None] * xs
     y = y.reshape(Bsz, di)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"])
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"], eps)
     out = (y @ params["out_proj"])[:, None]
     new_state = MambaState(conv=hist[..., 1:], ssm=new_ssm)
     return out, new_state

@@ -44,6 +44,7 @@ from .._device import resolve_device
 from ..models.model import (ModelConfig, _coded_scheme, coded_executor,
                             decode_step, init_cache, init_params, prefill,
                             prefill_resume, supports_prefill_pack)
+from ..models.moe import MoECounters, counting
 from ..telemetry.trace import span
 
 __all__ = ["Request", "Completion", "Engine", "cache_cat", "cache_take"]
@@ -166,6 +167,8 @@ class Engine:
         self.wait_s = 0.0
         self.prefill_calls = 0
         self.prefill_tokens = 0
+        # the mixture-of-experts layers' counts of every step (models/moe.py)
+        self.moe_counters = MoECounters()
         self._bind_steps()
         self._warm_decode()
 
@@ -174,11 +177,21 @@ class Engine:
         the closures capture ``cfg`` by value, which is what makes
         ``retarget_coded`` take effect."""
         cfg = self.cfg
-        self._prefill = lambda p, t, ms: prefill(cfg, p, t, max_seq=ms)
-        self._prefill_pack = (
+        counted = self._counted
+        self._prefill = counted(
+            lambda p, t, ms: prefill(cfg, p, t, max_seq=ms))
+        self._prefill_pack = counted(
             lambda p, t, ln, ms: prefill(cfg, p, t, max_seq=ms, lens=ln))
-        self._decode = lambda p, c, t: decode_step(cfg, p, c, token=t)
-        self._resume = lambda p, c, t: prefill_resume(cfg, p, c, t)
+        self._decode = counted(lambda p, c, t: decode_step(cfg, p, c, token=t))
+        self._resume = counted(lambda p, c, t: prefill_resume(cfg, p, c, t))
+
+    def _counted(self, step):
+        """``step`` with its mixture-of-experts layers counted into
+        ``moe_counters``."""
+        def run(*args):
+            with counting(self.moe_counters):
+                return step(*args)
+        return run
 
     def _warm_decode(self) -> None:
         if self.cfg.coded_n:
