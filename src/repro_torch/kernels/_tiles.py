@@ -3,9 +3,10 @@
 The skinny GEMM (``skinny_gemm.piece_plan``) and the direct conv
 (``conv2d.conv_plan``) decide in Python how a launch is cut — regime, block
 tile, contraction split, cluster size, shared memory — so that the CPU tests
-can pin the rules; the C side (``csrc/sgemm_mainloop.cuh`` and the two
-``.cu`` files) takes the plan and rejects one it cannot run.  ``TILES``
-mirrors ``SGEMM_FOR_EACH_TILE`` in ``csrc/sgemm_mainloop.cuh``.
+can pin the rules; the C side takes the plan and rejects one it cannot run.
+``TILES`` mirrors ``SGEMM_FOR_EACH_TILE`` in ``csrc/sgemm_mainloop.cuh``
+(the skinny GEMM's tiled regime); the conv's own tiles are
+``conv2d.CONV_TILES``.
 """
 from __future__ import annotations
 
@@ -92,28 +93,23 @@ def split_ranges(total: int, want: int, align: int = BK) -> tuple:
     return tuple((i * chunk, min(total, (i + 1) * chunk)) for i in range(n))
 
 
-def pick_tile(rows: int, cols: int, n_splits: int, fill: int,
-              first: int = 0) -> tuple[int, tuple]:
+def pick_tile(rows: int, cols: int, fill: int) -> tuple[int, tuple]:
     """The first tile of ``TILES`` (largest first) that wastes at most a
-    quarter of its padded work on the ragged edges and whose grid (times
-    the split) reaches ``fill`` blocks; else, of those, the one that makes
-    the most blocks.  Returns (index, (grid_x, grid_y)) with grid_x =
-    column tiles x splits.  ``first`` skips the larger tiles.  (The
-    callers' ``fill`` — two blocks per SM for the unsplit GEMM, about one
-    for the split conv — was read off timings of every tile at the main
-    paths' shapes on an H100.)"""
+    quarter of its padded work on the ragged edges and whose grid reaches
+    ``fill`` blocks; else, of those, the one that makes the most blocks.
+    Returns (index, (grid_x, grid_y)) with grid_x the column tiles.  (The
+    caller's ``fill``, two blocks per SM, was read off timings of every tile
+    at the main paths' shapes on an H100.)"""
     best = None
     for i, (bm, bn, _, _) in enumerate(TILES):
-        if i < first:
-            continue
         gy, gx = -(-rows // bm), -(-cols // bn)
         used = rows * cols / (gy * bm * gx * bn)
-        blocks = gx * gy * n_splits
+        blocks = gx * gy
         if used >= MIN_USED and blocks >= fill:
-            return i, (gx * n_splits, gy)
+            return i, (gx, gy)
         key = (used >= MIN_USED, blocks)
         if best is None or key > best[0]:
-            best = (key, i, (gx * n_splits, gy))
+            best = (key, i, (gx, gy))
     return best[1], best[2]
 
 

@@ -175,7 +175,7 @@ def piece_plan(m: int, b: int, F: int, dtype=torch.float32,
                                            "column slabs; bound by bytes, "
                                            "and narrower slabs measured "
                                            "slower"))
-    config, grid = _tiles.pick_tile(m, F, 1, 2 * _tiles.N_SMS)
+    config, grid = _tiles.pick_tile(m, F, 2 * _tiles.N_SMS)
     tile = _tiles.TILES[config]
     smem = _tiles.tile_smem(tile)
     return LaunchPlan("tiled", config, tile, _tiles.tile_threads(tile),

@@ -7,6 +7,7 @@ the rules the kernels' numerics rely on: the split of a contraction depends
 on the contraction (and, for the conv, the weight) alone, so an output
 element's reduction order never depends on F, N, H, W or P.
 """
+import gc
 import re
 from pathlib import Path
 
@@ -17,6 +18,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro_torch.kernels import _build, _tiles
+from repro_torch.kernels import conv2d as cv
 from repro_torch.kernels.conv2d import conv_plan, conv_splits
 from repro_torch.kernels import skinny_gemm as sg
 from repro_torch.kernels.skinny_gemm import (SMALL, coding_plan,
@@ -334,7 +336,7 @@ class TestConvPlan:
         for p in plans:
             _assert_plan_fits(p)
             chunk = p.splits[0][1] - p.splits[0][0]
-            assert p.smem_bytes == _tiles.tile_smem(p.tile) + 4 * chunk
+            assert p.smem_bytes == cv.ring_bytes(p.tile[1]) + 4 * chunk
 
     @settings(max_examples=100, deadline=None)
     @given(w=conv_w, x=conv_x, stride=st.sampled_from([1, 2]))
@@ -343,10 +345,10 @@ class TestConvPlan:
         n, h, wd = x
         p = conv_plan((n, c_in, h + K, wd + K), (c_out, c_in, K, K), stride)
         P = n * (h // stride + 1) * (wd // stride + 1)
-        bm, bn, _, _ = p.tile
-        assert p.grid[0] == -(-P // bn) * p.cluster
-        assert p.grid[1] == -(-c_out // bm)
-        assert p.threads == _tiles.tile_threads(p.tile)
+        bm, bn = p.tile  # pixels, channels
+        assert p.grid[0] == -(-P // bm) * p.cluster
+        assert p.grid[1] == -(-c_out // bn)
+        assert p.threads == cv.THREADS
 
     @pytest.mark.parametrize("xs,ws", CONV_MAIN + CONV_LOCAL)
     def test_main_path_shapes_fill_the_card_or_say_why(self, xs, ws):
@@ -358,10 +360,10 @@ class TestConvPlan:
 
     @pytest.mark.parametrize("ws,n", [((64, 3, 3, 3), 1), ((64, 64, 3, 3), 1),
                                       ((128, 64, 3, 3), 1),
-                                      ((128, 128, 3, 3), 2),
-                                      ((256, 256, 3, 3), 2),
-                                      ((512, 256, 3, 3), 8),
-                                      ((512, 512, 3, 3), 8)])
+                                      ((128, 128, 3, 3), 1),
+                                      ((256, 256, 3, 3), 1),
+                                      ((512, 256, 3, 3), 1),
+                                      ((512, 512, 3, 3), 2)])
     def test_vgg16_split_counts(self, ws, n):
         assert len(conv_splits(ws)) == n
 
@@ -372,6 +374,240 @@ class TestConvPlan:
         one, folded = conv_plan((1, 512, 30, 6), ws), conv_plan(
             (10, 512, 30, 6), ws)
         assert one.splits == folded.splits
+
+
+def _vgg16_conv_shapes(batch: int) -> list:
+    """Every conv launch of a VGG16 (224) request at ``batch`` images on
+    the (10, 6) MDS plan: the master's layers, each coded segment's piece
+    inputs and its remainder slice (x shape, w shape)."""
+    from repro_torch.core import SystemParams, compile_plan
+    from repro_torch.core.netplan import SegmentStep
+    from repro_torch.models.cnn import vgg16_conv_specs
+
+    layers = vgg16_conv_specs(224)
+    plan = compile_plan(layers, 10, SystemParams(), "mds")
+    seg = {i: st for st in plan.steps if isinstance(st, SegmentStep)
+           for i in range(st.start, st.stop)}
+    out = set()
+    for i, li in enumerate(layers):
+        sp = li.spec
+        ws = (sp.c_out, sp.c_in, sp.kernel, sp.kernel)
+        if i not in seg:
+            out.add(((batch, sp.c_in, sp.h_in, sp.w_in), ws))
+            continue
+        split = seg[i].split
+        chains = list(split.parts) + ([split.remainder]
+                                      if split.remainder is not None else [])
+        for cp in chains:
+            out.add(((batch, sp.c_in, sp.h_in, cp.entry.b_i - cp.entry.a_i),
+                     ws))
+    return sorted(out)
+
+
+VGG16_LAUNCHES = [(b, xs, ws) for b in (1, 4, 128)
+                  for xs, ws in _vgg16_conv_shapes(b)]
+
+
+def _entry_accepts(plan, xs, ws, stride=1) -> bool:
+    """The checks ``conv2d_launch`` (csrc/conv2d.cu) makes of a plan."""
+    N, c_in, h, w = xs
+    c_out, _, K, _ = ws
+    R = c_in * K * K
+    splits, chunk = plan.cluster, plan.chunk
+    if not (1 <= splits <= _tiles.MAX_SPLIT and chunk >= 1
+            and (splits == 1 or chunk % cv.BK == 0)
+            and (splits - 1) * chunk < R <= splits * chunk):
+        return False
+    if not 0 <= plan.config < len(cv.CONV_TILES):
+        return False
+    bn = cv.CONV_TILES[plan.config]
+    P = N * ((h - K) // stride + 1) * ((w - K) // stride + 1)
+    gx, gy = -(-P // cv.BM) * splits, -(-c_out // bn)
+    return (plan.smem_bytes == cv.ring_bytes(bn) + 4 * chunk
+            and plan.grid == (gx, gy) and gx < 2 ** 31 and gy <= 65535
+            and plan.threads == cv.THREADS)
+
+
+class TestConvPlanVGG16:
+    """The launches a VGG16 request makes at B = 1, 4 and 128 (the
+    benchmark's batch): the master's layers, the coded pieces and the
+    remainder slices."""
+
+    def test_covers_the_request(self):
+        from repro_torch.models.cnn import vgg16_conv_specs
+
+        shapes = _vgg16_conv_shapes(128)
+        assert {ws for _, ws in shapes} == {
+            (li.spec.c_out, li.spec.c_in, 3, 3) for li in vgg16_conv_specs()}
+        # pieces and remainders of the 10 coded layers, 3 master layers
+        assert ((128, 128, 114, 20), (128, 128, 3, 3)) in shapes
+        assert ((128, 128, 114, 6), (128, 128, 3, 3)) in shapes
+        assert ((128, 512, 16, 4), (512, 512, 3, 3)) in shapes
+        assert len(shapes) == 12
+
+    @pytest.mark.parametrize("b,xs,ws", VGG16_LAUNCHES)
+    def test_shared_memory_fits(self, b, xs, ws):
+        p = conv_plan(xs, ws, 1)
+        assert p.smem_bytes == p.shared_bytes <= _tiles.SMEM_LIMIT
+
+    @pytest.mark.parametrize("b,xs,ws", VGG16_LAUNCHES)
+    def test_split_is_the_weights(self, b, xs, ws):
+        p = conv_plan(xs, ws, 1)
+        assert p.splits == conv_splits(ws)
+        assert p.splits == conv_plan((1,) + tuple(xs[1:]), ws, 1).splits
+        _assert_partition(p.splits, ws[1] * ws[2] * ws[3])
+
+    @pytest.mark.parametrize("b,xs,ws", VGG16_LAUNCHES)
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_entry_accepts_the_plan(self, b, xs, ws, dtype):
+        p = conv_plan(xs, ws, 1, dtype)
+        assert _entry_accepts(p, xs, ws)
+        assert p.tile == (cv.BM, cv.CONV_TILES[p.config])
+        # the narrowest tile that holds the channels, else the widest; a
+        # grid short of the card, the narrowest whose grid still fits it
+        holds = [bn for bn in cv.CONV_TILES if bn >= ws[0]]
+        first = min(holds) if holds else max(cv.CONV_TILES)
+        P = xs[0] * (xs[2] - 2) * (xs[3] - 2)
+
+        def blocks(bn):
+            return -(-P // cv.BM) * p.cluster * -(-ws[0] // bn)
+        if blocks(first) >= _tiles.N_SMS:
+            assert p.tile[1] == first
+        else:
+            assert p.tile[1] == min([bn for bn in cv.CONV_TILES
+                                     if bn <= first
+                                     and blocks(bn) <= _tiles.N_SMS]
+                                    + [first])
+
+    @pytest.mark.parametrize("xs,ws,bn", [
+        ((1, 512, 30, 6), (512, 512, 3, 3), 64),     # conv4_2 piece: 8 blocks
+        ((4, 512, 16, 4), (512, 512, 3, 3), 64),     # conv5_x piece B=4
+        ((4, 128, 114, 20), (128, 128, 3, 3), 64),   # 63 blocks -> 126
+        ((1, 64, 114, 114), (128, 64, 3, 3), 128),   # 98 blocks, 196 won't fit
+        ((10, 128, 114, 20), (128, 128, 3, 3), 128),  # 158 blocks
+        ((128, 512, 16, 4), (512, 512, 3, 3), 128),  # the benchmark's batch
+    ])
+    def test_a_short_grid_takes_the_narrow_tile_that_fits(self, xs, ws, bn):
+        p = conv_plan(xs, ws, 1)
+        assert p.tile[1] == bn
+        assert p.splits == conv_splits(ws)  # the tile leaves the sums alone
+
+    @pytest.mark.parametrize("ws", [(1, 6000, 7, 7), (8, 12000, 5, 5)])
+    def test_too_long_a_contraction_is_refused(self, ws):
+        with pytest.raises(ValueError):
+            conv_splits(ws)
+
+    def test_long_contraction_splits_to_fit(self):
+        """A small weight with a long R takes more ranges than its work
+        asks for, so that a range's offset table fits."""
+        ws = (1, 1000, 7, 7)  # R = 49000 > MAX_CHUNK, C_O * R < 2^17
+        p = conv_plan((1, 1000, 9, 9), ws, 1)
+        assert p.cluster == -(-49000 // cv.MAX_CHUNK)
+        assert p.chunk <= cv.MAX_CHUNK and p.smem_bytes <= _tiles.SMEM_LIMIT
+
+
+class _FakeStream:
+    """A stand-in for a CUDA stream: records the events it waited for."""
+
+    def __init__(self, name):
+        self.name, self.waited = name, []
+
+    def wait_event(self, ev):
+        self.waited.append(ev)
+
+
+class _FakeEvent:
+    def record(self, stream=None):
+        self.stream = stream
+
+
+class _FakeSplit:
+    """A stand-in for a split weight (holding nothing of the weight, as
+    the split does not): records the streams it was used on."""
+
+    def __init__(self, config):
+        self.config, self.recorded = config, []
+
+    def record_stream(self, stream):
+        self.recorded.append(stream)
+
+
+class TestSplitWeightKept:
+    """``conv2d.split_weight`` keeps a weight's split while the weight
+    lives and is unchanged, and makes every other stream wait for it once.
+    The CUDA calls are replaced by stand-ins, so the bookkeeping runs on
+    the CPU."""
+
+    @pytest.fixture
+    def fake(self, monkeypatch):
+        state = {"stream": _FakeStream("a"), "capturing": False,
+                 "made": []}
+
+        def make(w, config):
+            state["made"].append(config)
+            return _FakeSplit(config)
+
+        monkeypatch.setattr(cv, "_make_split", make)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda *a: state["stream"])
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: state["capturing"])
+        monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+        monkeypatch.setattr(cv, "_splits", {})
+        return state
+
+    def test_made_once_per_weight_and_tile(self, fake):
+        w = torch.ones(4, 2, 3, 3)
+        first = cv.split_weight(w, 0)
+        assert cv.split_weight(w, 0) is first
+        other = cv.split_weight(w, 1)
+        assert other is not first and other.config == 1
+        assert cv.split_weight(torch.ones(4, 2, 3, 3), 0) is not first
+        assert len(fake["made"]) == 3
+
+    def test_an_in_place_write_makes_a_new_split(self, fake):
+        w = torch.ones(4, 2, 3, 3)
+        first = cv.split_weight(w, 0)
+        w.mul_(2.0)
+        second = cv.split_weight(w, 0)
+        assert second is not first
+        assert cv.split_weight(w, 0) is second
+        w[0].zero_()  # a write through a view counts too
+        assert cv.split_weight(w, 0) is not second
+
+    def test_another_stream_waits_once_and_is_recorded(self, fake):
+        w = torch.ones(4, 2, 3, 3)
+        ws = cv.split_weight(w, 0)
+        assert fake["stream"].waited == [] and ws.recorded == []
+        b = fake["stream"] = _FakeStream("b")
+        assert cv.split_weight(w, 0) is ws
+        assert cv.split_weight(w, 0) is ws
+        assert len(b.waited) == 1 and ws.recorded == [b]
+        assert b.waited[0].stream.name == "a"  # the event after the split
+
+    def test_dropped_with_the_weight(self, fake):
+        w = torch.ones(4, 2, 3, 3)
+        cv.split_weight(w, 0)
+        cv.split_weight(w, 1)
+        assert len(cv._splits) == 2
+        del w
+        gc.collect()
+        assert cv._splits == {}
+
+    def test_a_capture_makes_its_own_split_and_keeps_none(self, fake):
+        w = torch.ones(4, 2, 3, 3)
+        fake["capturing"] = True
+        a, b = cv.split_weight(w, 0), cv.split_weight(w, 0)
+        assert a is not b and cv._splits == {}
+        fake["capturing"] = False
+        kept = cv.split_weight(w, 0)
+        assert cv.split_weight(w, 0) is kept and len(fake["made"]) == 3
+
+    def test_a_tensor_without_a_version_counter_is_not_kept(self, fake):
+        with torch.inference_mode():
+            w = torch.ones(4, 2, 3, 3)
+        assert cv.split_weight(w, 0) is not cv.split_weight(w, 0)
+        assert cv._splits == {}
 
 
 class TestSourcesAgree:
@@ -392,6 +628,20 @@ class TestSourcesAgree:
         text = (CSRC / "sgemm_mainloop.cuh").read_text()
         assert re.search(rf"constexpr int {name} = (\d+);", text).group(1) \
             == str(value)
+
+    @pytest.mark.parametrize("name,value", [("BM", cv.BM), ("BK", cv.BK),
+                                            ("STAGES", cv.STAGES),
+                                            ("THREADS", cv.THREADS)])
+    def test_conv_constants(self, name, value):
+        text = (CSRC / "conv2d.cu").read_text()
+        assert re.search(rf"constexpr int {name} = (\d+);", text).group(1) \
+            == str(value)
+
+    def test_conv_tile_table(self):
+        text = (CSRC / "conv2d.cu").read_text()
+        rows = re.findall(r"X\((\d+), (\d+)\)", text)
+        assert [int(r[0]) for r in rows] == list(range(len(cv.CONV_TILES)))
+        assert tuple(int(r[1]) for r in rows) == cv.CONV_TILES
 
     def test_gemv_constants(self):
         from repro_torch.kernels import skinny_gemm as sg
